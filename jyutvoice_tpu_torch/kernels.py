@@ -1,0 +1,107 @@
+"""Build, load and count the package's CUDA kernels.
+
+Each `csrc/<name>.cu` exports a plain C function and is compiled by nvcc into
+its own shared library under `_build/`, at first use; the libraries are loaded
+with ctypes. Libraries are named by a hash of their source, so an edited
+source rebuilds and an unchanged one is reused. `build_all()` starts one nvcc
+per source at once.
+
+`LAUNCHES` counts kernel launches per kernel. A wrapper adds one where it
+launches its kernel and nowhere else; `reset_launch_counts()` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+KERNEL_SOURCES = ("flash_attention", "resblock_stage")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc for one source into a temporary file; None if built."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Compile every kernel source that has no library yet, all at once."""
+    with _LOCK:
+        started = {name: _start_build(name) for name in KERNEL_SOURCES}
+        errors = []
+        for name, st in started.items():
+            try:
+                _finish_build(name, st)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source, building it if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        with _LOCK:
+            _finish_build(name, _start_build(name))
+            lib = _LIBS.setdefault(name, ctypes.CDLL(_lib_path(name)))
+    return lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise on a CUDA error code returned by a launch."""
+    if status != 0:
+        raise RuntimeError(f"CUDA error {status} launching the {name} kernel")

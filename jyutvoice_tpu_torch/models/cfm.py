@@ -1,0 +1,59 @@
+"""Conditional flow matching: fixed-step Euler solve with classifier-free guidance.
+
+The counterpart of the JAX package's `models/cfm.py` (inference only). The
+Euler loop is a Python loop over the steps; classifier-free guidance runs as
+one doubled batch per step (rows [0, B) conditioned, rows [B, 2B) with mu,
+spks and cond zeroed), so each step makes one estimator call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from jyutvoice_tpu_torch.config import CFMConfig
+from jyutvoice_tpu_torch.models.estimator import Estimator
+
+Tensor = torch.Tensor
+
+
+def cosine_t_span(n_timesteps: int, device="cpu") -> Tensor:
+    """t_span = 1 - cos(linspace(0, 1) * pi / 2), n_timesteps + 1 points."""
+    t = torch.linspace(0.0, 1.0, n_timesteps + 1, dtype=torch.float32, device=device)
+    return 1.0 - torch.cos(t * 0.5 * math.pi)
+
+
+def solve_euler_cfg(
+    estimator: Estimator, cfg: CFMConfig, z: Tensor, t_span: Tensor, mu: Tensor,
+    mask: Tensor, spks: Tensor, cond: Tensor, streaming: bool = False,
+) -> Tensor:
+    """z, mu, cond (B, T, 80); mask (B, T, 1); spks (B, 80)."""
+    b = z.shape[0]
+    mu2 = torch.cat([mu, torch.zeros_like(mu)], dim=0)
+    spks2 = torch.cat([spks, torch.zeros_like(spks)], dim=0)
+    cond2 = torch.cat([cond, torch.zeros_like(cond)], dim=0)
+    mask2 = torch.cat([mask, mask], dim=0)
+    rate = cfg.inference_cfg_rate
+    x = z
+    for i in range(t_span.shape[0] - 1):
+        t, dt = t_span[i], t_span[i + 1] - t_span[i]
+        x2 = torch.cat([x, x], dim=0)
+        t2 = t.to(x.dtype).expand(2 * b)
+        dphi = estimator(x2, mask2, mu2, t2, spks2, cond2, streaming)
+        dphi = (1.0 + rate) * dphi[:b] - rate * dphi[b:]
+        x = x + dt * dphi
+    return x.float()
+
+
+def cfm_forward(
+    estimator: Estimator, cfg: CFMConfig, mu: Tensor, mask: Tensor, spks: Tensor,
+    cond: Tensor, *, n_timesteps: int, rand_noise: Tensor,
+    temperature: float = 1.0, streaming: bool = False,
+) -> Tensor:
+    """Mel from the prior mean. rand_noise: (1, >= T, 80) fixed noise buffer."""
+    t = mu.shape[1]
+    z = rand_noise[:, :t, :].to(mu.dtype) * temperature
+    z = z.expand(mu.shape)
+    t_span = cosine_t_span(n_timesteps, device=mu.device).to(mu.dtype)
+    return solve_euler_cfg(estimator, cfg, z, t_span, mu, mask, spks, cond, streaming)

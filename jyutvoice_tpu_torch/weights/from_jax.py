@@ -1,0 +1,131 @@
+"""Load the JAX package's parameter trees into this package's modules.
+
+A JAX parameter tree is nested dicts and lists of arrays, as `init_tts` /
+`init_hift` return them or as `save_pytree_npz` writes them. The modules of
+this package carry the same names along the same paths, so the bridge only
+changes layouts, leaf module by leaf module:
+
+  Linear           {"w": (Cin, Cout), "b"}   -> weight (Cout, Cin), bias
+  Conv1d           {"w": (K, Cin, Cout), "b"} -> weight (Cout, Cin, K), bias
+  ConvTranspose1d  {"w": (K, Cin, Cout), "b"} -> weight (Cin, Cout, K), bias
+  LayerNorm        {"g", "b"}                -> weight, bias
+  Embedding        {"w": (V, D)}             -> weight (V, D)
+  ParameterList    [arrays]                  -> one parameter each
+
+It is strict both ways: a tree leaf that no parameter takes, a parameter that
+no leaf fills, or a shape that differs raises ValueError.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from jyutvoice_tpu_torch.nn import core
+
+# leaf module type -> {tree key: (parameter name, numpy axes permutation)}
+_LEAVES = {
+    core.Linear: {"w": ("weight", (1, 0)), "b": ("bias", None)},
+    core.Conv1d: {"w": ("weight", (2, 1, 0)), "b": ("bias", None)},
+    core.ConvTranspose1d: {"w": ("weight", (1, 2, 0)), "b": ("bias", None)},
+    core.LayerNorm: {"g": ("weight", None), "b": ("bias", None)},
+    core.Embedding: {"w": ("weight", None)},
+}
+
+
+def _fill(param: nn.Parameter, value, path: str, filled: set) -> None:
+    arr = np.array(value, dtype=np.float32)  # a writable copy
+    if tuple(arr.shape) != tuple(param.shape):
+        raise ValueError(
+            f"{path}: tree shape {tuple(arr.shape)} does not fit parameter "
+            f"shape {tuple(param.shape)}"
+        )
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(arr))
+    filled.add(id(param))
+
+
+def _load(module: nn.Module, node, path: str, filled: set) -> None:
+    spec = _LEAVES.get(type(module))
+    if spec is not None:
+        if not isinstance(node, dict):
+            raise ValueError(f"{path}: expected a dict of arrays")
+        wanted = {k for k, (name, _) in spec.items() if getattr(module, name) is not None}
+        if set(node) != wanted:
+            raise ValueError(
+                f"{path}: tree keys {sorted(node)} do not match {sorted(wanted)}"
+            )
+        for key, (name, perm) in spec.items():
+            if key in node:
+                arr = np.asarray(node[key])
+                _fill(getattr(module, name), arr.transpose(perm) if perm else arr,
+                      f"{path}/{key}", filled)
+        return
+    if isinstance(module, nn.ParameterList):
+        if not isinstance(node, (list, tuple)) or len(node) != len(module):
+            raise ValueError(f"{path}: expected a list of {len(module)} arrays")
+        for i, (p, v) in enumerate(zip(module, node)):
+            _fill(p, v, f"{path}/{i}", filled)
+        return
+    if isinstance(module, nn.ModuleList):
+        if not isinstance(node, (list, tuple)) or len(node) != len(module):
+            raise ValueError(f"{path}: expected a list of {len(module)} subtrees")
+        for i, (m, v) in enumerate(zip(module, node)):
+            _load(m, v, f"{path}/{i}", filled)
+        return
+    children = dict(module.named_children())
+    if not isinstance(node, dict):
+        raise ValueError(f"{path}: expected a dict subtree")
+    extra = sorted(set(node) - set(children))
+    missing = sorted(set(children) - set(node))
+    if extra or missing:
+        raise ValueError(
+            f"{path or '<root>'}: tree keys not taken {extra}, modules not filled {missing}"
+        )
+    for name, child in children.items():
+        _load(child, node[name], f"{path}/{name}" if path else name, filled)
+
+
+def load_jax_params(module: nn.Module, tree) -> nn.Module:
+    """Copy a JAX parameter tree into `module` in place; returns the module."""
+    filled: set = set()
+    _load(module, tree, "", filled)
+    unfilled = [n for n, p in module.named_parameters() if id(p) not in filled]
+    if unfilled:
+        raise ValueError(f"parameters not filled by the tree: {unfilled}")
+    return module
+
+
+# ---------------------------------------------------------------------------
+# .npz trees (the JAX package's save_pytree_npz format: "a/b/0/w" keys)
+# ---------------------------------------------------------------------------
+
+
+def _listify(node):
+    if isinstance(node, dict):
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys):
+            return [_listify(node[str(i)]) for i in range(len(keys))]
+        return {k: _listify(v) for k, v in node.items()}
+    return node
+
+
+def unflatten(flat: Dict[str, np.ndarray]):
+    """{"a/b/0/w": array} -> nested dicts, with all-digit keys as lists."""
+    root: dict = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return _listify(root)
+
+
+def load_pytree_npz(path: str):
+    """A parameter tree saved by the JAX package's `save_pytree_npz`."""
+    with np.load(path) as data:
+        return unflatten({k: data[k] for k in data.files})

@@ -1,0 +1,91 @@
+"""The port stands alone: no module of `jyutvoice_tpu_torch`, and not
+`chip_smoke.py`, imports JAX or the JAX package, and the port synthesizes
+in a process where both are import-blocked."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "jyutvoice_tpu_torch")
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "jyutvoice_tpu")
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_port_sources()), ids=lambda p: os.path.relpath(p, REPO)
+)
+def test_no_jax_imports(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{os.path.relpath(path, REPO)}:{node.lineno} imports {bad}"
+
+
+_CHILD = r"""
+import sys
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "jyutvoice_tpu"):
+            raise ImportError(f"blocked for this test ({name})")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+
+import numpy as np
+
+from jyutvoice_tpu_torch.config import (
+    CFMConfig, EstimatorConfig, HiFTConfig, JyutVoiceConfig, TextEncoderConfig, TTSConfig,
+)
+from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+from jyutvoice_tpu_torch.weights.random_init import init_hift_tree, init_tts_tree
+
+cfg = JyutVoiceConfig(
+    tts=TTSConfig(
+        encoder=TextEncoderConfig(n_layers=1, filter_channels=64),
+        cfm=CFMConfig(estimator=EstimatorConfig(n_blocks=1, num_mid_blocks=1)),
+    ),
+    hift=HiFTConfig(base_channels=64),
+)
+s = Synthesizer(cfg, init_tts_tree(cfg.tts), init_hift_tree(cfg.hift), device="cpu")
+r = s.synthesize("佢", lang="yue", phone="keoi5", n_timesteps=2)
+assert r.wav.shape == (r.mel_frames * 480,) and np.isfinite(r.wav).all()
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_STANDALONE_OK", r.wav.shape[0])
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_STANDALONE_OK" in proc.stdout
