@@ -86,10 +86,15 @@ class EstimatorConfig:
     act_fn: str = "gelu"
     static_chunk_size: int = 50  # mel frames per streaming chunk (25 tokens * 2)
     num_decoding_left_chunks: int = -1
-    # The fields below select among the JAX package's attention and conv
-    # backends. They are kept so the two packages share one configuration;
-    # this package reads none of them: it computes exact attention through
-    # its flash kernel (nn/flash_attention.py) and its convs as torch convs.
+    # Attention backends (models/estimator.py::attention_route): "xla" takes
+    # the long-form gates on CUDA (banded at T >= banded_long_threshold,
+    # 128-aligned; else kernel 3 at 512-aligned T >= 2048) and kernel 1
+    # otherwise; "banded" forces the chunk-band on every device; any other
+    # value of the JAX package ("xla_scores", "pallas") computes exact
+    # attention through kernel 1. The banded geometry: query chunk c attends
+    # key chunks [c - banded_left, c + banded_right] of banded_chunk frames.
+    # The 2048 threshold is the JAX package's TPU choice, kept until an H100
+    # measurement decides it. conv_backend is read only by the JAX package.
     attention_backend: str = "xla"
     banded_chunk: int = 128
     banded_left: int = 2

@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` exports a plain C function and is compiled by nvcc into
 its own shared library under `_build/`, at first use; the libraries are loaded
-with ctypes. Libraries are named by a hash of their source, so an edited
-source rebuilds and an unchanged one is reused. `build_all()` starts one nvcc
-per source at once.
+with ctypes. Libraries are named by a hash of their source and of the local
+headers it includes (`#include "..."`), so an edited source or header
+rebuilds and an unchanged one is reused. `build_all()` starts one nvcc per
+source at once.
 
 `LAUNCHES` counts kernel launches per kernel. A wrapper adds one where it
 launches its kernel and nowhere else; `reset_launch_counts()` zeroes them.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -23,7 +25,7 @@ from typing import Dict
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("flash_attention", "resblock_stage")
+KERNEL_SOURCES = ("flash_attention", "resblock_stage", "flash_stock")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -45,9 +47,16 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        src = f.read()
+    for header in _LOCAL_INCLUDE.findall(src):
+        with open(os.path.join(CSRC, header.decode()), "rb") as f:
+            src += f.read()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
 

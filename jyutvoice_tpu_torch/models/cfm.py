@@ -27,8 +27,10 @@ def cosine_t_span(n_timesteps: int, device="cpu") -> Tensor:
 def solve_euler_cfg(
     estimator: Estimator, cfg: CFMConfig, z: Tensor, t_span: Tensor, mu: Tensor,
     mask: Tensor, spks: Tensor, cond: Tensor, streaming: bool = False,
+    attention: str = "auto",
 ) -> Tensor:
-    """z, mu, cond (B, T, 80); mask (B, T, 1); spks (B, 80)."""
+    """z, mu, cond (B, T, 80); mask (B, T, 1); spks (B, 80); attention the
+    estimator's long-form mode ("auto", "banded" or "exact")."""
     b = z.shape[0]
     mu2 = torch.cat([mu, torch.zeros_like(mu)], dim=0)
     spks2 = torch.cat([spks, torch.zeros_like(spks)], dim=0)
@@ -40,7 +42,7 @@ def solve_euler_cfg(
         t, dt = t_span[i], t_span[i + 1] - t_span[i]
         x2 = torch.cat([x, x], dim=0)
         t2 = t.to(x.dtype).expand(2 * b)
-        dphi = estimator(x2, mask2, mu2, t2, spks2, cond2, streaming)
+        dphi = estimator(x2, mask2, mu2, t2, spks2, cond2, streaming, attention)
         dphi = (1.0 + rate) * dphi[:b] - rate * dphi[b:]
         x = x + dt * dphi
     return x.float()
@@ -49,11 +51,13 @@ def solve_euler_cfg(
 def cfm_forward(
     estimator: Estimator, cfg: CFMConfig, mu: Tensor, mask: Tensor, spks: Tensor,
     cond: Tensor, *, n_timesteps: int, rand_noise: Tensor,
-    temperature: float = 1.0, streaming: bool = False,
+    temperature: float = 1.0, streaming: bool = False, attention: str = "auto",
 ) -> Tensor:
     """Mel from the prior mean. rand_noise: (1, >= T, 80) fixed noise buffer."""
     t = mu.shape[1]
     z = rand_noise[:, :t, :].to(mu.dtype) * temperature
     z = z.expand(mu.shape)
     t_span = cosine_t_span(n_timesteps, device=mu.device).to(mu.dtype)
-    return solve_euler_cfg(estimator, cfg, z, t_span, mu, mask, spks, cond, streaming)
+    return solve_euler_cfg(
+        estimator, cfg, z, t_span, mu, mask, spks, cond, streaming, attention
+    )

@@ -11,11 +11,19 @@ flat pipeline over (B, T, C):
   final: causal block -> 1x1 proj -> 80 channels
 
 Each transformer block: LN -> attention (8 heads x 64) -> LN -> GELU FF (x4).
-Attention is exact at every T: kernel 1 on CUDA, its plain version on CPU.
+
+Attention is chosen once per call, in the JAX package's order
+(`attention_route`): an explicit "banded" backend (the config's, or the
+per-call mode) on any device; then, for CUDA tensors only, the long-form
+banded gate (`use_banded`) and the stock-flash gate (`use_stock_flash`,
+kernel 3); otherwise exact attention through kernel 1. The JAX package takes
+the two gates only on its accelerator, so on the CPU both packages compute
+exact attention and the parity tests compare like with like.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -35,6 +43,62 @@ def sinusoidal_pos_emb(t: Tensor, dim: int, scale: float = 1000.0) -> Tensor:
     freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device) * -emb)
     ang = scale * t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def use_banded(t: int, chunk: int, cfg: EstimatorConfig) -> bool:
+    """Long-form banded gate: full attention, 128-aligned T at or past
+    `banded_long_threshold` (0 disables it)."""
+    return (
+        chunk == 0
+        and cfg.banded_long_threshold > 0
+        and t >= cfg.banded_long_threshold
+        and t % cfg.banded_chunk == 0
+    )
+
+
+def use_stock_flash(t: int, chunk: int) -> bool:
+    """Long-form stock-flash gate: full attention, T >= 2048 and a multiple
+    of the 512 block."""
+    return chunk == 0 and t >= 2048 and _flash_block(t) > 0
+
+
+def _flash_block(t: int) -> int:
+    """The stock-flash block for T: 512, or 0 when T is not a multiple."""
+    return 512 if t % 512 == 0 else 0
+
+
+ATTENTION_MODES = ("auto", "banded", "exact")
+
+
+def attention_route(
+    cfg: EstimatorConfig, t: int, chunk: int, attention: str = "auto",
+    on_cuda: bool = True,
+) -> str:
+    """The attention backend of one estimator call: "banded", "flash_stock"
+    (kernel 3) or "flash" (kernel 1).
+
+    `attention` is the per-call long-form mode: "banded" acts as the
+    config's attention_backend="banded", "exact" as banded_long_threshold=0
+    (the stock-flash gate stays), "auto" keeps the config."""
+    if attention not in ATTENTION_MODES:
+        raise ValueError(
+            f"unknown long-form attention {attention!r} "
+            "(use 'auto', 'banded' or 'exact')"
+        )
+    if attention == "exact":
+        cfg = dataclasses.replace(cfg, banded_long_threshold=0)
+    if attention == "banded" or cfg.attention_backend == "banded":
+        if chunk != 0:
+            raise ValueError("the banded backend is for full (non-streaming) attention")
+        if t % cfg.banded_chunk:
+            raise ValueError(f"banded attention needs T % {cfg.banded_chunk} == 0, got T={t}")
+        return "banded"
+    if on_cuda and cfg.attention_backend == "xla":
+        if use_banded(t, chunk, cfg):
+            return "banded"
+        if use_stock_flash(t, chunk):
+            return "flash_stock"
+    return "flash"
 
 
 class TimeMLP(nn.Module):
@@ -125,21 +189,27 @@ class Estimator(nn.Module):
 
     def forward(
         self, x: Tensor, mask: Tensor, mu: Tensor, t: Tensor, spks: Tensor,
-        cond: Tensor, streaming: bool = False,
+        cond: Tensor, streaming: bool = False, attention: str = "auto",
     ) -> Tensor:
         """x, mu, cond (B, T, 80); mask (B, T, 1) prefix mask; t (B,);
-        spks (B, 80). Returns the velocity (B, T, 80)."""
+        spks (B, 80); attention the long-form mode of `attention_route`.
+        Returns the velocity (B, T, 80)."""
         cfg = self.cfg
         b, seq, _ = x.shape
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, cfg.in_channels).to(x.dtype))
         spks_t = spks[:, None, :].to(x.dtype).expand(b, seq, spks.shape[-1])
         h = torch.cat([x, mu, spks_t, cond], dim=-1)
+        chunk = cfg.static_chunk_size if streaming else 0
+        backend = attention_route(cfg, seq, chunk, attention, x.is_cuda)
         attn_ctx = {
             "lengths": mask[:, :, 0].sum(dim=1).to(torch.int32),
             "n_heads": cfg.num_heads,
-            "chunk_size": cfg.static_chunk_size if streaming else 0,
-            "num_left_chunks": cfg.num_decoding_left_chunks,
+            "backend": backend,
         }
+        if backend == "flash":
+            attn_ctx.update(chunk_size=chunk, num_left_chunks=cfg.num_decoding_left_chunks)
+        elif backend == "banded":
+            attn_ctx["band"] = (cfg.banded_chunk, cfg.banded_left, cfg.banded_right)
         h = self.down(h, mask, t_emb, attn_ctx)
         skip = h
         h = self.down_conv(h * mask, padding="causal")

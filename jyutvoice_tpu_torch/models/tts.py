@@ -36,7 +36,7 @@ class TTS(nn.Module):
         self.spk_embed_affine_layer = core.Linear(cfg.spk_embed_dim, cfg.output_size)
 
 
-def _l2_normalize(x: Tensor, dim: int = -1, eps: float = 1e-12) -> Tensor:
+def l2_normalize(x: Tensor, dim: int = -1, eps: float = 1e-12) -> Tensor:
     """torch F.normalize semantics: x / max(||x||, eps)."""
     norm = torch.sqrt(torch.sum(torch.square(x), dim=dim, keepdim=True))
     return x / torch.clamp(norm, min=eps)
@@ -73,7 +73,7 @@ def synthesize_mel(
     voice cloning. prompt_lengths are read on the host for the graft."""
     cfg = model.cfg
     enc = model.encoder(x_ids, x_lengths, lang, tone, word_pos, syllable_pos, spk_embed)
-    c = model.spk_embed_affine_layer(_l2_normalize(spk_embed, dim=1))  # (B, 80)
+    c = model.spk_embed_affine_layer(l2_normalize(spk_embed, dim=1))  # (B, 80)
 
     logw = model.dp(enc.x, enc.x_mask, spk_embed)  # (B, T_text, 1)
     w = torch.exp(logw) * enc.x_mask

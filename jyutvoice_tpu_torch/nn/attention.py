@@ -1,8 +1,9 @@
-"""Attention: masked SDPA, partial-RoPE self-attention (text encoder) and the
-plain diffusers-style attention of the CFM estimator.
+"""Attention: masked SDPA, partial-RoPE self-attention (text encoder), the
+plain diffusers-style attention of the CFM estimator and the banded
+(chunk-local) attention of the long-form gate.
 
-The counterpart of the JAX package's `nn/attention.py`. All public functions
-take and return channels-last (B, T, C); heads are split internally.
+The counterpart of the JAX package's `nn/attention.py`. The modules take and
+return channels-last (B, T, C); heads are split internally.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 
 from jyutvoice_tpu_torch.nn import core
 from jyutvoice_tpu_torch.nn.flash_attention import flash_attention
+from jyutvoice_tpu_torch.nn.flash_stock import flash_stock
 
 Tensor = torch.Tensor
 
@@ -98,9 +100,76 @@ class RopeMHA(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def banded_sdpa(
+    q: Tensor, k: Tensor, v: Tensor, lengths: Tensor, *, chunk: int, left: int,
+    right: int = 0,
+) -> Tensor:
+    """Banded (chunk-local) attention, linear in T. q/k/v (B, H, T, D);
+    lengths (B,) valid key lengths. Returns (B, H, T, D).
+
+    Query chunk c attends to key chunks [c - left, c + right], a window of
+    w = (left + 1 + right) * chunk keys. The band is computed slab-wise from
+    shifted views of the padded K/V, as in the JAX package: scores are
+    (B, H, nc, chunk, w), never (B, H, T, T), and no banded K/V copy is
+    made. Key validity comes from positions (window slots before the
+    sequence or at/after the length get -1e10). A query chunk with no valid
+    key comes out as a uniform average; the caller's mask zeroes it. Scores
+    stay f32 on every device."""
+    b, h, t, d = q.shape
+    if t % chunk:
+        raise ValueError(f"banded_sdpa: T={t} is not a multiple of chunk {chunk}")
+    nc = t // chunk
+    n_slabs = left + 1 + right
+    w = n_slabs * chunk
+    scale = 1.0 / math.sqrt(d)
+    pad = (0, 0, left * chunk, right * chunk)
+    kp = torch.nn.functional.pad(k, pad)
+    vp = torch.nn.functional.pad(v, pad)
+    qc = q.reshape(b, h, nc, chunk, d)
+
+    def slab(x: Tensor, j: int) -> Tensor:
+        return x[:, :, j * chunk : j * chunk + t].reshape(b, h, nc, chunk, d)
+
+    scores = torch.cat(
+        [torch.matmul(qc, slab(kp, j).transpose(-1, -2)) for j in range(n_slabs)],
+        dim=-1,
+    ) * scale
+    # absolute key position of window slot (c, wi) = c*chunk - left*chunk + wi
+    pos = (
+        torch.arange(nc, device=q.device)[:, None] * chunk - left * chunk
+        + torch.arange(w, device=q.device)[None, :]
+    )
+    keep = (pos >= 0)[None] & (pos[None] < lengths.to(pos.dtype)[:, None, None])
+    scores = torch.where(keep[:, None, :, None, :], scores, -1e10)
+    probs = torch.softmax(scores, dim=-1)
+    out = sum(
+        torch.matmul(probs[..., j * chunk : (j + 1) * chunk], slab(vp, j))
+        for j in range(n_slabs)
+    )
+    return out.reshape(b, h, t, d)
+
+
+def banded_mha(
+    attn: "PlainMHA", x: Tensor, lengths: Tensor, n_heads: int, *, chunk: int,
+    left: int, right: int = 0,
+) -> Tensor:
+    """`PlainMHA`'s projections around `banded_sdpa`. x (B, T, C)."""
+    q, k, v = attn.project(x, n_heads)
+    out = banded_sdpa(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths,
+        chunk=chunk, left=left, right=right,
+    )
+    return attn.o(merge_heads(out))
+
+
 class PlainMHA(nn.Module):
-    """diffusers Attention: bias-free q/k/v, biased output projection. The
-    core is kernel 1 (`flash_attention`) on CUDA, its plain version on CPU."""
+    """diffusers Attention: bias-free q/k/v, biased output projection.
+
+    The core is chosen by `backend`, as the estimator's dispatch decides:
+    "flash" is kernel 1 (`flash_attention`, key padding and the streaming
+    chunk rule), "flash_stock" is kernel 3 (`flash_stock`, segment ids from
+    the lengths) and "banded" is `banded_mha`. The kernels run on CUDA
+    tensors and their plain versions on CPU tensors."""
 
     def __init__(self, query_dim: int, n_heads: int, head_dim: int):
         super().__init__()
@@ -110,18 +179,31 @@ class PlainMHA(nn.Module):
         self.v = core.Linear(query_dim, inner, bias=False)
         self.o = core.Linear(inner, query_dim)
 
-    def forward(
-        self, x: Tensor, lengths: Tensor, n_heads: int, chunk_size: int = 0,
-        num_left_chunks: int = -1,
-    ) -> Tensor:
-        """x (B, T, C); lengths (B,) int32 valid key lengths."""
+    def project(self, x: Tensor, n_heads: int):
+        """(B, T, H*D) projections viewed as (B, T, H, D): no head split copy."""
         b, t, _ = x.shape
-        # (B, T, H*D) projections viewed as (B, T, H, D): no head split copy
-        q = self.q(x).view(b, t, n_heads, -1)
-        k = self.k(x).view(b, t, n_heads, -1)
-        v = self.v(x).view(b, t, n_heads, -1)
-        out = flash_attention(
-            q, k, v, lengths, scale=1.0 / math.sqrt(q.shape[-1]),
-            chunk_size=chunk_size, num_left_chunks=num_left_chunks,
-        )
+        return tuple(lin(x).view(b, t, n_heads, -1) for lin in (self.q, self.k, self.v))
+
+    def forward(
+        self, x: Tensor, lengths: Tensor, n_heads: int, backend: str = "flash",
+        chunk_size: int = 0, num_left_chunks: int = -1, band=None,
+    ) -> Tensor:
+        """x (B, T, C); lengths (B,) int32 valid key lengths; chunk_size and
+        num_left_chunks are kernel 1's streaming rule, band the banded
+        backend's (chunk, left, right)."""
+        if backend == "banded":
+            chunk, left, right = band
+            return banded_mha(self, x, lengths, n_heads, chunk=chunk, left=left, right=right)
+        b, t, _ = x.shape
+        q, k, v = self.project(x, n_heads)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        if backend == "flash_stock":
+            out = flash_stock(q, k, v, lengths, scale=scale)
+        elif backend == "flash":
+            out = flash_attention(
+                q, k, v, lengths, scale=scale, chunk_size=chunk_size,
+                num_left_chunks=num_left_chunks,
+            )
+        else:
+            raise ValueError(f"unknown attention backend {backend!r}")
         return self.o(out.view(b, t, -1))

@@ -1,20 +1,26 @@
 """End-to-end synthesis: text -> token ids -> mel -> 24 kHz waveform.
 
 The counterpart of the JAX package's `pipeline/synthesize.py::Synthesizer`
-(non-streaming path):
+(non-streaming paths, one device):
   * host: g2p + blank interspersal, padded to a text bucket;
   * phase 1, duration: text encoder + duration predictor -> mel frames;
   * phase 2, mel: `synthesize_mel` at the (text, mel, prompt) bucket, with
     the 10-step Euler CFM whose attention is kernel 1 on CUDA;
   * phase 3, vocoder: HiFT at the mel bucket, kernel 2 for the C <= 128
     ResBlock stages on CUDA.
+Past the largest mel bucket, `synthesize` hands the request to
+`synthesize_long`: the text half once (`prepare_stream`), then one CFM solve
+over the whole utterance at a 512-aligned length, where the estimator takes
+the long-form attention gates (banded, or kernel 3 for exact attention),
+then the windowed vocoder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,10 +28,56 @@ import torch
 from jyutvoice_tpu_torch.config import JyutVoiceConfig
 from jyutvoice_tpu_torch.models import hift as hift_mod
 from jyutvoice_tpu_torch.models import tts as tts_mod
+from jyutvoice_tpu_torch.models.cfm import cfm_forward
+from jyutvoice_tpu_torch.models.estimator import ATTENTION_MODES
 from jyutvoice_tpu_torch.pipeline import buckets as bkt
 from jyutvoice_tpu_torch.text import intersperse, text_to_sequence
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 from jyutvoice_tpu_torch.weights.noise import rand_noise, rand_noise_extended
+
+PROMPT_PAIR_ERROR = (
+    "voice cloning needs BOTH prompt_feat and prompt_h "
+    "(PromptExtractor returns the pair); got only one"
+)
+
+
+def long_frame_granule(n_seq: int) -> int:
+    """Mel-frame granule of the one-pass long-form decode: multiples of it
+    keep the shape table small and divide by any sequence-mesh size."""
+    return math.lcm(32, n_seq) if n_seq > 1 else 32
+
+
+def long_form_shapes(
+    y_len: int, prompted: bool, attention: str = "auto", banded_chunk: int = 128
+) -> Tuple[int, int]:
+    """(prompt head, mel length) of the long-form solve, which runs at
+    t_total = head + mel frames, as the JAX package picks them on one device.
+
+    The mel length is y_len rounded up to the 32-frame granule, then past
+    1536 frames to a multiple of 512 (the stock-flash block); inside the
+    bucket table it is the bucket, except the 15000-frame cap, which is not
+    512-aligned and keeps the aligned length. attention="banded" rounds it up
+    to the banded chunk. A prompt takes a fixed 512-frame head."""
+    granule = long_frame_granule(1)
+    align = 512
+    want = -(-max(y_len, 1) // granule) * granule
+    if want > 1536:
+        want = -(-want // align) * align
+    if want <= bkt.MEL_BUCKETS[-1]:
+        t_mel = bkt.pick_bucket(want, bkt.MEL_BUCKETS)
+        if t_mel % granule or (t_mel % align and t_mel >= 2048):
+            t_mel = want
+    else:
+        t_mel = want
+    if attention == "banded":
+        t_mel = -(-t_mel // banded_chunk) * banded_chunk
+    head = math.lcm(512, granule) if prompted else 0
+    return head, t_mel
+
+
+def to_pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """round(clip(wav, -1, 1) * 32767) as int16, on the wav's device."""
+    return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
 def disable_tf32() -> None:
@@ -38,8 +90,8 @@ def disable_tf32() -> None:
 
 @dataclasses.dataclass
 class SynthesisResult:
-    wav: np.ndarray  # (num_samples,) float32 at 24 kHz
-    mel: np.ndarray  # (T_mel, 80)
+    wav: np.ndarray  # (num_samples,) float32 at 24 kHz (int16 if not dequantized)
+    mel: Optional[np.ndarray]  # (T_mel, 80); None when not asked for
     mel_frames: int
     rtf: float  # wall-clock real-time factor
     timings: Dict[str, float]
@@ -81,17 +133,65 @@ class Synthesizer:
             arrs.append(a)
         return arrs, np.array([n], np.int64), t_text
 
-    @torch.inference_mode()
-    def duration_frames(self, arrs, n, spk: torch.Tensor) -> int:
-        """Phase 1: mel frames the text needs at length_scale 1."""
+    def _spk(self, spk_embed: Optional[np.ndarray]) -> torch.Tensor:
+        if spk_embed is None:
+            return torch.zeros((1, self.cfg.tts.spk_embed_dim), device=self.device)
+        return torch.as_tensor(
+            np.asarray(spk_embed, np.float32).reshape(1, -1), device=self.device
+        )
+
+    def _durations(self, arrs, n, spk: torch.Tensor):
+        """Text encoder + duration predictor: (encoder output, ceil(w))."""
         x, tone, word_pos, syllable_pos, lang_ids = (
             torch.from_numpy(a).to(self.device) for a in arrs
         )
         x_lengths = torch.from_numpy(n).to(self.device)
         enc = self.tts.encoder(x, x_lengths, lang_ids, tone, word_pos, syllable_pos, spk)
         logw = self.tts.dp(enc.x, enc.x_mask, spk)
-        w_ceil = torch.ceil(torch.exp(logw) * enc.x_mask)
+        return enc, torch.ceil(torch.exp(logw) * enc.x_mask)
+
+    @torch.inference_mode()
+    def duration_frames(self, arrs, n, spk: torch.Tensor) -> int:
+        """Phase 1: mel frames the text needs at length_scale 1."""
+        _, w_ceil = self._durations(arrs, n, spk)
         return int(torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0)[0])
+
+    @torch.inference_mode()
+    def prepare_stream(
+        self,
+        text: str,
+        lang: str = "yue",
+        phone: Optional[str] = None,
+        spk_embed: Optional[np.ndarray] = None,
+        length_scale: float = 1.0,
+        prepped=None,
+    ):
+        """The text half of long-form synthesis: encoder and durations on the
+        device, the duration -> frame expansion on the host. Returns
+        (mu_y (y_len, 80), c (80,), y_len). prepped= reuses a
+        `prepare_text` result.
+
+        Frame j belongs to token i iff cum[i-1] <= j < cum[i] (what
+        `generate_path` computes), i.e. np.searchsorted(cum, j, "right"),
+        with the cumulative sum in f64 so a fractional length_scale puts the
+        boundaries where real arithmetic does."""
+        arrs, n, _ = prepped if prepped is not None else self.prepare_text(text, lang, phone)
+        spk = self._spk(spk_embed)
+        enc, w_ceil = self._durations(arrs, n, spk)
+        w_ceil = w_ceil * length_scale
+        c = self.tts.spk_embed_affine_layer(tts_mod.l2_normalize(spk, dim=1))
+        w_np = w_ceil.float().cpu().numpy()
+        mu_np = enc.mu.float().cpu().numpy()
+        c_np = c.float().cpu().numpy()
+        y_len = int(max(w_np.sum(), 1.0))
+        # masked text rows carry w = 0, so the flat cumsum tail claims no frame
+        cum = np.cumsum(w_np[0, :, 0], dtype=np.float64)
+        idx = np.searchsorted(cum, np.arange(y_len, dtype=np.float64), side="right")
+        mu_t = mu_np[0]
+        mu_y = np.zeros((y_len, mu_t.shape[1]), np.float32)
+        valid = idx < mu_t.shape[0]  # y_len = 1 on empty durations -> zero row
+        mu_y[valid] = mu_t[idx[valid]]
+        return mu_y, c_np[0], y_len
 
     @torch.inference_mode()
     def synthesize(
@@ -104,27 +204,27 @@ class Synthesizer:
         prompt_h: Optional[np.ndarray] = None,  # (T_p, 80)
         n_timesteps: int = 10,
         length_scale: float = 1.0,
+        pcm16: bool = False,
     ) -> SynthesisResult:
+        """pcm16=True rounds the waveform to 16 bits on the device (read back
+        as int16, returned dequantized)."""
         t0 = time.perf_counter()
         arrs, n, t_text = self.prepare_text(text, lang, phone)
-        if spk_embed is None:
-            spk = torch.zeros((1, self.cfg.tts.spk_embed_dim), device=self.device)
-        else:
-            spk = torch.as_tensor(
-                np.asarray(spk_embed, np.float32).reshape(1, -1), device=self.device
-            )
+        spk = self._spk(spk_embed)
 
         # phase 1: required mel frames
         y_len = int(np.ceil(self.duration_frames(arrs, n, spk) * length_scale))
+        # the prompt pair is checked before the long-form hand-over
         if (prompt_feat is None) != (prompt_h is None):
-            raise ValueError(
-                "voice cloning needs BOTH prompt_feat and prompt_h; got only one"
-            )
+            raise ValueError(PROMPT_PAIR_ERROR)
         if y_len > bkt.MEL_BUCKETS[-1]:
-            raise NotImplementedError(
-                f"{y_len} mel frames exceed the largest bucket "
-                f"({bkt.MEL_BUCKETS[-1]}); long-form synthesis (synthesize_long) "
-                "belongs to the long-form slice of the port, not yet ported"
+            # past the bucket table: one pass of the long-form path, reusing
+            # this call's g2p
+            return self.synthesize_long(
+                text, lang=lang, phone=phone, spk_embed=spk_embed,
+                prompt_feat=prompt_feat, prompt_h=prompt_h,
+                n_timesteps=n_timesteps, length_scale=length_scale, pcm16=pcm16,
+                prepped=(arrs, n, t_text),
             )
         t_mel = bkt.pick_bucket(max(y_len, 1), bkt.MEL_BUCKETS)
 
@@ -161,11 +261,15 @@ class Synthesizer:
         t2 = time.perf_counter()
 
         wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
+        if pcm16:
+            wav = to_pcm16(wav)
         self._sync()
         t3 = time.perf_counter()
 
         num_samples = mel_frames * self.cfg.audio.hop_length
-        wav_np = wav[0, :num_samples].float().cpu().numpy()
+        wav_np = wav[0, :num_samples].cpu().numpy()
+        if pcm16:
+            wav_np = wav_np.astype(np.float32) / 32767.0
         mel_np = out.mel[0, :mel_frames].float().cpu().numpy()
         elapsed = t3 - t0
         audio_seconds = num_samples / self.cfg.audio.sample_rate
@@ -173,6 +277,126 @@ class Synthesizer:
             wav=wav_np,
             mel=mel_np,
             mel_frames=mel_frames,
+            rtf=elapsed / max(audio_seconds, 1e-9),
+            timings={
+                "frontend_and_duration": t1 - t0,
+                "mel": t2 - t1,
+                "vocoder": t3 - t2,
+                "total": elapsed,
+                "audio_seconds": audio_seconds,
+            },
+        )
+
+    @torch.inference_mode()
+    def synthesize_long(
+        self,
+        text: str,
+        lang: str = "yue",
+        phone: Optional[str] = None,
+        spk_embed: Optional[np.ndarray] = None,
+        prompt_feat: Optional[np.ndarray] = None,  # (T_p, 80)
+        prompt_h: Optional[np.ndarray] = None,  # (T_p, 80)
+        n_timesteps: int = 10,
+        length_scale: float = 1.0,
+        attention: str = "auto",
+        pcm16: bool = False,
+        dequantize: bool = True,
+        return_mel: bool = True,
+        prepped=None,
+    ) -> SynthesisResult:
+        """One-pass long-form synthesis on one device, past the bucket table.
+
+        attention: "auto" keeps the configured estimator backend (on CUDA:
+        banded past banded_long_threshold, kernel 3 for exact attention at
+        512-aligned T >= 2048 below it); "banded" forces the chunk-band at
+        any length; "exact" forces full attention (kernel 3 where the
+        stock-flash gate admits T).
+
+        Voice cloning: the prompt pair grafts front-aligned into a fixed
+        512-frame head (prompt_h into mu, prompt_feat into cond), so the
+        mask stays a prefix mask; the generated frames start right after the
+        true prompt length and are cut out before vocoding.
+
+        pcm16=True rounds the waveform to int16 on the device;
+        dequantize=False returns that int16. return_mel=False skips the mel
+        readback; prepped= reuses a `prepare_text` result."""
+        t0 = time.perf_counter()
+        if attention not in ATTENTION_MODES:
+            raise ValueError(
+                f"unknown long-form attention {attention!r} "
+                "(use 'auto', 'banded' or 'exact')"
+            )
+        if (prompt_feat is None) != (prompt_h is None):
+            raise ValueError(PROMPT_PAIR_ERROR)
+        p_len = 0
+        if prompt_feat is not None:
+            prompt_feat = np.asarray(prompt_feat, np.float32)
+            prompt_h = np.asarray(prompt_h, np.float32)
+            for name, arr in (("prompt_feat", prompt_feat), ("prompt_h", prompt_h)):
+                if arr.ndim != 2 or arr.shape[1] != 80:
+                    raise ValueError(f"{name} must be (T_p, 80), got {arr.shape}")
+            p_len = int(prompt_feat.shape[0])
+            if prompt_h.shape[0] != p_len:
+                raise ValueError(
+                    f"prompt_feat/prompt_h lengths differ: {p_len} vs "
+                    f"{prompt_h.shape[0]}"
+                )
+            if p_len > bkt.PROMPT_BUCKETS[-1]:
+                audio = self.cfg.audio
+                raise ValueError(
+                    f"cloning prompt is {p_len} mel frames — past the largest "
+                    f"prompt bucket {bkt.PROMPT_BUCKETS[-1]} (~"
+                    f"{bkt.PROMPT_BUCKETS[-1] * audio.hop_length / audio.sample_rate:.0f} s); "
+                    "trim the reference audio"
+                )
+
+        mu_y, c, y_len = self.prepare_stream(
+            text, lang=lang, phone=phone, spk_embed=spk_embed,
+            length_scale=length_scale, prepped=prepped,
+        )
+        p_head, t_mel = long_form_shapes(
+            y_len, prompt_feat is not None, attention,
+            self.cfg.tts.cfm.estimator.banded_chunk,
+        )
+        t_total = p_head + t_mel
+        t1 = time.perf_counter()
+
+        mu = np.zeros((1, t_total, 80), np.float32)
+        cond = np.zeros((1, t_total, 80), np.float32)
+        if p_len:
+            mu[0, :p_len] = prompt_h
+            cond[0, :p_len] = prompt_feat
+        mu[0, p_len : p_len + y_len] = mu_y[:y_len]
+        mask = (np.arange(t_total) < p_len + y_len).astype(np.float32)[None, :, None]
+        dev = self.device
+        mel = cfm_forward(
+            self.tts.decoder, self.cfg.tts.cfm, torch.from_numpy(mu).to(dev),
+            torch.from_numpy(mask).to(dev),
+            torch.from_numpy(np.asarray(c, np.float32).reshape(1, -1)).to(dev),
+            torch.from_numpy(cond).to(dev), n_timesteps=n_timesteps,
+            rand_noise=rand_noise_extended(t_total, device=dev), attention=attention,
+        )
+        if p_head:
+            mel = mel[:, p_len : p_len + t_mel]
+        self._sync()
+        t2 = time.perf_counter()
+
+        wav, _ = hift_mod.hift_vocode_auto(self.hift, mel)
+        if pcm16:
+            wav = to_pcm16(wav)
+        num_samples = y_len * self.cfg.audio.hop_length
+        wav_np = wav[0, :num_samples].cpu().numpy()
+        mel_np = mel[0, :y_len].float().cpu().numpy() if return_mel else None
+        if pcm16 and dequantize:
+            wav_np = wav_np.astype(np.float32) / 32767.0
+        t3 = time.perf_counter()
+
+        audio_seconds = num_samples / self.cfg.audio.sample_rate
+        elapsed = t3 - t0
+        return SynthesisResult(
+            wav=wav_np,
+            mel=mel_np,
+            mel_frames=y_len,
             rtf=elapsed / max(audio_seconds, 1e-9),
             timings={
                 "frontend_and_duration": t1 - t0,

@@ -6,11 +6,11 @@ for every letter and a ladder of left/right context windows, the majority
 phone output; prediction backs off from the widest observed context to the
 bare letter, with dictionary-backed morphology first (`predict_pron`).
 
-The trained rule table is a data file of the JAX package
-(`jyutvoice_tpu/text/data/lts_model.pkl.gz`, trained there with
-`python -m jyutvoice_tpu.text.lts --train`). This copy reads that file by
-path; english.py loads it at first OOV and falls back to the old crude rule
-map only when neither artifact nor dictionary is available.
+The trained rule table ships with this package (`text/data/lts_model.pkl.gz`,
+a byte-for-byte copy of the JAX package's table, trained there with
+`python -m jyutvoice_tpu.text.lts --train`). english.py loads it at first OOV
+and falls back to the old crude rule map only when neither artifact nor
+dictionary is available.
 """
 
 from __future__ import annotations
@@ -21,12 +21,8 @@ import os
 import pickle
 from typing import List, Tuple
 
-# A file read, not an import: the 6.5 MB rule table is data that lives with
-# the JAX package's text frontend, and this package reads it from there
-# instead of keeping a second copy.
 MODEL_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "jyutvoice_tpu", "text", "data", "lts_model.pkl.gz",
+    os.path.dirname(os.path.abspath(__file__)), "data", "lts_model.pkl.gz"
 )
 
 

@@ -72,10 +72,33 @@ def test_prompted_synthesis_and_validation(synths):
 
 
 def test_past_the_bucket_table_raises(synths, monkeypatch):
+    """Past the 15000-frame bucket, synthesize raises only on a half-given
+    prompt pair (checked before the hand-over) and otherwise delegates to
+    synthesize_long with this call's g2p output and its PCM16 choice, as
+    tests/test_pipeline.py holds the JAX package to."""
     _, port_s = synths
     monkeypatch.setattr(port_s, "duration_frames", lambda *a: 20000)
-    with pytest.raises(NotImplementedError, match="long-form"):
-        port_s.synthesize("佢", lang="yue", phone="keoi5", n_timesteps=2)
+    called = {}
+
+    def spy(text, **kw):
+        called.update(kw, text=text)
+        return "SENTINEL"
+
+    monkeypatch.setattr(port_s, "synthesize_long", spy)
+    pf = np.zeros((8, 80), np.float32)
+    with pytest.raises(ValueError, match="BOTH"):
+        port_s.synthesize("佢", lang="yue", phone="keoi5", prompt_h=pf, n_timesteps=2)
+    assert not called
+    out = port_s.synthesize("佢", lang="yue", phone="keoi5", prompt_feat=pf, prompt_h=pf,
+                            n_timesteps=2, pcm16=True)
+    assert out == "SENTINEL" and called["text"] == "佢"
+    assert called["prompt_feat"] is pf and called["prompt_h"] is pf
+    assert called["pcm16"] is True and called["n_timesteps"] == 2
+    arrs, n, t_text = called["prepped"]
+    want_arrs, want_n, want_t = port_s.prepare_text("佢", "yue", "keoi5")
+    assert t_text == want_t and int(n[0]) == int(want_n[0])
+    for a, b in zip(arrs, want_arrs):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_infer_cli_with_npz_trees(tmp_path):

@@ -1,6 +1,7 @@
 """The port stands alone: no module of `jyutvoice_tpu_torch`, and not
-`chip_smoke.py`, imports JAX or the JAX package, and the port synthesizes
-in a process where both are import-blocked."""
+`chip_smoke.py`, imports JAX or the JAX package or names a path into it, the
+port reads its own copy of the LTS rule table, and it synthesizes in a
+process where JAX and the JAX package are import-blocked."""
 
 import ast
 import os
@@ -41,6 +42,46 @@ def test_no_jax_imports(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{os.path.relpath(path, REPO)}:{node.lineno} imports {bad}"
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant):
+            yield body[0].value
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_port_sources()), ids=lambda p: os.path.relpath(p, REPO)
+)
+def test_no_paths_into_the_jax_package(path):
+    """No string in the code names the JAX package's directory, so nothing
+    builds a path into it. Docstrings and chip_smoke.py's `replaces=` labels
+    (which name the TPU kernel a kernel replaces) are text, not paths."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    docs = {id(d) for d in _docstrings(tree)}
+    docs |= {id(n.value) for n in ast.walk(tree)
+             if isinstance(n, ast.keyword) and n.arg == "replaces"}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            v = node.value
+            assert not (v == "jyutvoice_tpu" or "jyutvoice_tpu/" in v
+                        or "jyutvoice_tpu" + os.sep in v), \
+                f"{os.path.relpath(path, REPO)}:{node.lineno} names {v!r}"
+
+
+def test_lts_model_is_the_ports_own_copy():
+    from jyutvoice_tpu_torch.text import lts
+
+    path = os.path.realpath(lts.MODEL_PATH)
+    assert path.startswith(os.path.realpath(PORT) + os.sep)
+    jax_copy = os.path.join(REPO, "jyutvoice_tpu", "text", "data", "lts_model.pkl.gz")
+    with open(path, "rb") as a, open(jax_copy, "rb") as b:
+        assert a.read() == b.read()
+    assert lts.load_model(path)["rules"]
 
 
 _CHILD = r"""

@@ -25,6 +25,7 @@ from jyutvoice_tpu.nn.pallas.resblock import (
 )
 from jyutvoice_tpu_torch.models.hift import ResBlock
 from jyutvoice_tpu_torch.nn.flash_attention import flash_attention
+from jyutvoice_tpu_torch.nn.flash_stock import flash_stock
 from jyutvoice_tpu_torch.nn.resblock_stage import (
     chain_halo,
     pack_stage_weights,
@@ -170,5 +171,6 @@ def test_wrappers_take_plain_path_only_on_cpu():
     _, port_br = _branches(16, seed=4)
     resblock_stage(torch.zeros(1, 10, 16), pack_stage_weights(port_br, DIL),
                    kernel_sizes=KS, dilations=DIL)
-    assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0}
+    flash_stock(q, q, q, torch.tensor([8], dtype=torch.int32), scale=0.125)
+    assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0, "flash_stock": 0}
     assert not kernels._LIBS
