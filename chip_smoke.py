@@ -28,11 +28,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      prompt (2560 frames in all, kernel 3), and synthesize past the
      15000-frame bucket with PCM16 (delegated, banded); then two long-form
      requests (exact with a prompt at 2560 frames, banded at 2048) against
-     the same model on the CPU.
+     the same model on the CPU;
+  8. kernels 4 and 5 (the stock flash backward, dK/dV and dQ) against the
+     plain backward on every row at T = 2048, 2560, 4096 (D = 64) and one
+     D = 128 case, kernel 3's residuals against the plain forward's stats,
+     with the times of each kernel, the plain backward and SDPA's backward,
+     and kernel 3 timed with and without residuals;
+  9. the training path: a full-width trainer (default JyutVoiceConfig,
+     random weights, seed 0) takes 8 steps at batch 2 in the 2048-frame mel
+     bucket (kernels 3, 4 and 5, 56 launches each per step), then 3 steps
+     at the short shape (batch 16, text 128, mel 512, "plain" attention);
+     then one deterministic step of a reduced-depth full-width model, its
+     losses and trainable gradients on the card against the CPU.
 Launch counts are zeroed before and read after each request of phases 6
-and 7. The line before the last is a JSON object with one entry per kernel;
-the last line is {"ok": true, "device": {...}}.
-Exits non-zero without printing a result when no CUDA device is available.
+and 7 and each training step of phase 9. The line before the last is a JSON
+object with one entry per kernel; the last line is {"ok": true, "device":
+{...}}. Exits non-zero without printing a result when no CUDA device is
+available.
 """
 
 import json
@@ -48,6 +60,9 @@ PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 ATTN_TOL = (5e-3, 2e-2)  # atol, rtol: bf16 products, f32 accumulation
 STOCK_TOL = (5e-3, 1e-2)  # the JAX package's bar for the stock flash kernel
 STAGE_TOL = (2e-5, 1e-4)  # f32 throughout
+BWD_BAR = 1e-2  # kernels 4 and 5: max |err| / max |ref| per gradient (bf16 products)
+TRAIN_LOSS_RTOL = 1e-3  # card against CPU, one deterministic step
+TRAIN_GRAD_RTOL = 2e-2  # relative L2 norm of the trainable gradients
 
 
 def log(*args):
@@ -220,6 +235,260 @@ def phase_flash_stock():
     return dict(max_abs_err=worst, **main)
 
 
+def _visible_pairs(lens, t, h):
+    return sum(n * n + (t - n) * (t - n) for n in lens) * h
+
+
+def phase_flash_stock_bwd():
+    """Kernels 4 and 5 against the plain backward on every row, kernel 3's
+    residuals against the plain forward's stats, and times."""
+    import torch
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch.nn import flash_stock as fs
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, h = 2, 8
+    worst = {"dkv": 0.0, "dq": 0.0}
+    main = None
+    cases = ((2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (4096, [4096, 3001], 64),
+             (2048, [2048, 1700], 128))
+    for t, lens, d in cases:
+        # strided (B, T, H, D) views of one projection, as in the estimator
+        qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g)
+        q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
+        do = torch.randn(b, t, h, d, device="cuda", generator=g)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        scale = d ** -0.5
+        o, m, l = fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True)
+        o_ref, m_ref, l_ref = fs.flash_stock_plain(q, k, v, lengths, scale=scale, residuals=True)
+        di = fs.flash_stock_di(o, do)
+        dk, dv = fs.flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale)
+        dq = fs.flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale)
+        dq_ref, dk_ref, dv_ref = fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths,
+                                                          scale=scale)
+        torch.cuda.synchronize()
+        # the residuals: the row max, and the log-sum-exp m + log l (l alone
+        # scales with the max, which bf16 products move)
+        res_ok = (within(o, o_ref, STOCK_TOL) and within(m, m_ref, STOCK_TOL)
+                  and within(m + torch.log(l), m_ref + torch.log(l_ref), STOCK_TOL))
+        rel, err = {}, {}
+        for name, x, y in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+            err[name] = float((x - y).abs().max())
+            rel[name] = err[name] / float(y.abs().max())
+        ok = res_ok and all(r <= BWD_BAR for r in rel.values())
+        worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
+        worst["dq"] = max(worst["dq"], err["dq"])
+
+        fwd_ms = cuda_time_ms(lambda: fs.flash_stock(q, k, v, lengths, scale=scale), 30)
+        res_ms = cuda_time_ms(
+            lambda: fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True), 30)
+        dkv_ms = cuda_time_ms(
+            lambda: fs.flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale), 30)
+        dq_ms = cuda_time_ms(
+            lambda: fs.flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale), 30)
+        plain_ms = cuda_time_ms(
+            lambda: fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths, scale=scale), 5,
+            warmup=1)
+        # SDPA's backward with the boolean segment mask, the backward only
+        keep = fs.segment_keep_mask(lengths, t)
+        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=scale)
+        dot = do.transpose(1, 2).contiguous()
+        lib_ms = cuda_time_ms(
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
+        del out, qt, kt, vt
+
+        pairs = _visible_pairs(lens, t, h)
+        io = b * t * h * d * 4  # one (B, T, H, D) f32 tensor
+        rows = 3 * b * h * t * 4  # m, l, di
+        dkv_bound = bound(4 * io + rows + 2 * io, 8 * pairs * d, PEAK_BF16_FLOPS)
+        dq_bound = bound(4 * io + rows + io, 6 * pairs * d, PEAK_BF16_FLOPS)
+        log(f"flash_stock_bwd T={t} lengths={lens} D={d}: rel_err dq={rel['dq']:.2e} "
+            f"dk={rel['dk']:.2e} dv={rel['dv']:.2e} (max_abs_err dq={err['dq']:.3e} "
+            f"dk={err['dk']:.3e} dv={err['dv']:.3e}) residuals_ok={res_ok} ok={ok} "
+            f"dkv_ms={dkv_ms:.4f} ({8 * pairs * d / dkv_ms / 1e9:.1f} TFLOP/s, bound "
+            f"{dkv_bound[0]:.4f}) dq_ms={dq_ms:.4f} ({6 * pairs * d / dq_ms / 1e9:.1f} "
+            f"TFLOP/s, bound {dq_bound[0]:.4f}) plain_bwd_ms={plain_ms:.4f} "
+            f"sdpa_bwd_ms={lib_ms:.4f} fwd_ms={fwd_ms:.4f} fwd_residuals_ms={res_ms:.4f}")
+        if not ok:
+            fail(f"the stock flash backward disagrees with its plain version at T={t} D={d}")
+        if (t, d) == (2048, 64):  # the training step's shape
+            main = {
+                "dkv": dict(ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
+                            bound_by=dkv_bound[1], library_ms=lib_ms),
+                "dq": dict(ms=dq_ms, plain_ms=plain_ms, bound_ms=dq_bound[0],
+                           bound_by=dq_bound[1], library_ms=lib_ms),
+            }
+    return {k: dict(max_abs_err=worst[k], **main[k]) for k in main}
+
+
+def phase_train():
+    """The training path at full width: 8 steps at the 2048-frame bucket
+    (kernels 3, 4, 5), then 3 steps at the short shape ("plain")."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig, TrainConfig
+    from jyutvoice_tpu_torch.models import tts as tts_mod
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    cfg = JyutVoiceConfig()
+    est = cfg.tts.cfm.estimator
+    per_step = (est.num_mid_blocks + 2) * est.n_blocks
+    model = load_jax_params(tts_mod.TTS(cfg.tts), random_init.init_tts_tree(cfg.tts, seed=0))
+    model = model.cuda()
+    trainer = Trainer(model, TrainConfig(batch_size=2), torch.Generator(device="cuda").manual_seed(0))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    # MAS time per step, from CUDA events around each call
+    real_mas = tts_mod.maximum_path
+    mas_events = []
+
+    def timed_mas(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_mas(*a, **k)
+        ev[1].record()
+        mas_events.append(ev)
+        return out
+
+    tts_mod.maximum_path = timed_mas
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    try:
+        def run(label, rows, steps, want):
+            dm = TextMelDataModule(rows, DataConfig(batch_size=trainer.train_cfg.batch_size))
+            batches = list(dm.train_batches(0))[:steps]
+            step_ms, mas_ms = [], []
+            torch.cuda.reset_peak_memory_stats()
+            for i, batch in enumerate(batches):
+                mas_events.clear()
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                metrics = trainer.step(batch)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                launches = dict(kernels.LAUNCHES)
+                for k in totals:
+                    totals[k] += launches[k]
+                mas_ms.append(sum(a.elapsed_time(b) for a, b in mas_events))
+                loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+                log(f"train {label} step {i + 1}: y={tuple(batch['y'].shape)} "
+                    f"x={tuple(batch['x'].shape)} loss={loss:.4f} grad_norm={gnorm:.3f} "
+                    f"lr={metrics['lr']:.3e} step_ms={step_ms[-1]:.1f} mas_ms={mas_ms[-1]:.1f} "
+                    f"launches={launches}")
+                if launches != want or not (np.isfinite(loss) and np.isfinite(gnorm)):
+                    fail(f"training step {i + 1} ({label}) failed its checks (want {want})")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            warm = step_ms[2:] if len(step_ms) > 3 else step_ms[1:]
+            log(f"train {label}: {len(batches)} steps, median step ms (steps "
+                f"{len(step_ms) - len(warm) + 1}-{len(step_ms)}) {float(np.median(warm)):.1f}, "
+                f"median MAS ms {float(np.median(mas_ms)):.1f}, "
+                f"max_memory_allocated {peak:.2f} GiB")
+            return batches
+
+        zero = {k: 0 for k in kernels.LAUNCHES}
+        long_rows = dummy_rows(20, seed=0, mel_frames=(1400, 2000))
+        batches = run("B=2 mel 2048", long_rows, 8, dict(
+            zero, flash_stock=per_step, flash_stock_bwd_dkv=per_step,
+            flash_stock_bwd_dq=per_step))
+        if any(b["y"].shape[1] != 2048 for b in batches) or len(batches) != 8:
+            fail("the long training batches did not land in the 2048-frame bucket")
+        moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+        frozen_ok = not any(n.startswith(("decoder.", "spk_embed_affine_layer.")) for n in moved)
+        trained_ok = (any(n.startswith("encoder.") for n in moved)
+                      and any(n.startswith("dp.") for n in moved))
+        log(f"train: decoder bit-unchanged={frozen_ok}, encoder and duration predictor "
+            f"changed={trained_ok} ({len(moved)} tensors moved)")
+        if not (frozen_ok and trained_ok):
+            fail("the frozen decoder moved or the trainable modules did not")
+
+        trainer.train_cfg = TrainConfig(batch_size=16)
+        short_rows = dummy_rows(49, seed=1, mel_frames=(440, 510), phones=(56, 63))
+        batches = run("B=16 text 128 mel 512 (plain)", short_rows, 3, zero)
+        if any(b["y"].shape[1] != 512 or b["x"].shape[1] != 128 for b in batches):
+            fail("the short training batches did not land at text 128 / mel 512")
+    finally:
+        tts_mod.maximum_path = real_mas
+    return totals
+
+
+def phase_train_reference():
+    """One deterministic training step of a full-width, reduced-depth model
+    (1 mid stage, 1 block per stage) at the 2048-frame bucket on the card
+    (kernels 3, 4, 5) and on the CPU (plain attention): losses and
+    trainable gradients."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.models import tts as tts_mod
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, collate, dummy_rows, row_to_example
+    from jyutvoice_tpu_torch.train.step import batch_to_device, freeze
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    base = JyutVoiceConfig().tts
+    est = dataclasses.replace(base.cfm.estimator, num_mid_blocks=1, n_blocks=1)
+    cfg = dataclasses.replace(base, cfm=dataclasses.replace(base.cfm, estimator=est))
+    tree = random_init.init_tts_tree(cfg, seed=2)
+    dc = DataConfig(batch_size=2)
+    batch = collate([row_to_example(r, dc) for r in dummy_rows(2, seed=3, mel_frames=(1500, 1900))],
+                    dc)
+    rng = np.random.default_rng(4)
+    b, t = batch["y"].shape[:2]
+    batch["decoder_h"] = rng.standard_normal(batch["y"].shape).astype(np.float32)
+    batch["spk_embed"] = rng.standard_normal(batch["spk_embed"].shape).astype(np.float32)
+    ov = dict(t_override=np.array([0.35, 0.8], np.float32),
+              z_override=rng.standard_normal((b, t, 80)).astype(np.float32),
+              cfg_keep_override=np.array([1.0, 0.0], np.float32))
+    keys = ("x", "x_lengths", "y", "y_lengths", "lang", "tone", "word_pos", "syllable_pos",
+            "spk_embed", "decoder_h")
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = load_jax_params(tts_mod.TTS(cfg), tree).to(device)
+        names = freeze(model, cfg)
+        tb = batch_to_device(batch, device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = tts_mod.compute_losses(
+            model, None, *(tb[k] for k in keys), cond_prob=1.0, train_dropout=False,
+            cfm_overrides={k: torch.from_numpy(v).to(device) for k, v in ov.items()},
+        )
+        out.total.backward()
+        named = dict(model.named_parameters())
+        results[device] = dict(
+            losses={k: getattr(out, k).item() for k in ("dur_loss", "prior_loss", "diff_loss",
+                                                        "total")},
+            attn=out.attn.cpu(), grads={n: named[n].grad.cpu() for n in names},
+            launches=dict(kernels.LAUNCHES), s=time.perf_counter() - t0,
+        )
+    card, cpu = results["cuda"], results["cpu"]
+    per_call = est.num_mid_blocks + 2
+    want = {"flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
+            "flash_stock_bwd_dq": per_call, "flash_attention": 0, "resblock_stage": 0}
+    loss_gap = {k: abs(card["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
+    diff = sum(float(torch.sum((card["grads"][n] - g) ** 2)) for n, g in cpu["grads"].items())
+    ref = sum(float(torch.sum(g ** 2)) for g in cpu["grads"].values())
+    grad_gap = (diff / ref) ** 0.5
+    attn_equal = torch.equal(card["attn"], cpu["attn"])
+    log(f"train reference (CPU, plain attention) vs card (kernels 3/4/5): y={tuple(batch['y'].shape)} "
+        f"loss rel gaps {json.dumps({k: float(f'{v:.3e}') for k, v in loss_gap.items()})} "
+        f"trainable grad rel L2 gap {grad_gap:.3e} attn_equal={attn_equal} "
+        f"card launches={card['launches']} (CPU {cpu['s']:.1f} s)")
+    if (card["launches"] != want or not attn_equal or max(loss_gap.values()) > TRAIN_LOSS_RTOL
+            or not grad_gap <= TRAIN_GRAD_RTOL):
+        fail("the card's training step does not agree with the CPU")
+
+
 def phase_stage(synth):
     import torch
 
@@ -281,7 +550,8 @@ def run_request(synth, label, expect_bucket=None, **kw):
     ok = (
         np.isfinite(res.wav).all()
         and res.wav.shape == (res.mel_frames * 480,)
-        and launches == {"flash_attention": want_flash, "resblock_stage": 2, "flash_stock": 0}
+        and launches == {"flash_attention": want_flash, "resblock_stage": 2, "flash_stock": 0,
+                         "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0}
         and (expect_bucket is None or bucket == expect_bucket)
     )
     t = {k: round(v, 6) for k, v in res.timings.items()}
@@ -394,7 +664,8 @@ def phase_long_form(synth):
             and res.mel.shape == (res.mel_frames, 80)
             and head + t_mel == t_total
             and launches == {"flash_attention": want_k1, "flash_stock": want_k3,
-                             "resblock_stage": 2}
+                             "resblock_stage": 2, "flash_stock_bwd_dkv": 0,
+                             "flash_stock_bwd_dq": 0}
         )
         t = {k: round(v, 6) for k, v in res.timings.items()}
         log(f"long-form {label}: mel_frames={res.mel_frames} t_total={head + t_mel} "
@@ -468,12 +739,17 @@ def main():
 
     flash = phase_flash()
     stock = phase_flash_stock()
+    bwd = phase_flash_stock_bwd()
     stage = phase_stage(synth)
     _, counts = phase_main_path(synth)
     phase_reference(synth, params_tts, params_hift)
     long_counts = phase_long_form(synth)
     phase_long_reference(synth, params_tts, params_hift)
-    counts = {k: counts[k] + long_counts[k] for k in counts}
+    del synth
+    torch.cuda.empty_cache()
+    train_counts = phase_train()
+    phase_train_reference()
+    counts = {k: counts.get(k, 0) + long_counts.get(k, 0) + train_counts[k] for k in train_counts}
 
     line = {"kernels": [
         dict(name="flash_attention", route="cuda",
@@ -490,6 +766,17 @@ def main():
                       "(forward pallas_call of flash_attention, called at "
                       "jyutvoice_tpu/models/estimator.py:215-249)",
              launches=counts["flash_stock"], **stock),
+        dict(name="flash_stock_bwd_dkv", route="cuda",
+             source="jyutvoice_tpu_torch/csrc/flash_stock_bwd.cu",
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                      "(pallas_call of _flash_attention_bwd_dkv, the backward of the "
+                      "stock flash_attention called at jyutvoice_tpu/models/estimator.py:215-249)",
+             launches=counts["flash_stock_bwd_dkv"], **bwd["dkv"]),
+        dict(name="flash_stock_bwd_dq", route="cuda",
+             source="jyutvoice_tpu_torch/csrc/flash_stock_bwd.cu",
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                      "(pallas_call of _flash_attention_bwd_dq)",
+             launches=counts["flash_stock_bwd_dq"], **bwd["dq"]),
     ]}
     log(smi)
     log(json.dumps(line))

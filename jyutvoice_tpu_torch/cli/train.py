@@ -1,0 +1,199 @@
+"""Train the text encoder and duration predictor against the frozen flow
+decoder with the PyTorch port, on one device.
+
+  python -m jyutvoice_tpu_torch.cli.train --dummy --max-steps 100
+  python -m jyutvoice_tpu_torch.cli.train --device cpu --dummy --max-steps 2
+
+The counterpart of the JAX package's `cli/train.py` on one device. Weights
+start from the seeded random tree (`weights/random_init.py`, --seed);
+--dummy trains on synthetic rows (--dummy-mel 1400,2000 lands batches in the
+2048 mel bucket, where the estimator takes kernels 3, 4 and 5 on the card).
+Each epoch ends with an eval-mode validation pass, whose loss keeps the best
+checkpoints in <ckpt-dir>/best. SIGTERM, SIGINT or `request_stop()` stop
+the run at the next step boundary and save a checkpoint; --resume continues
+from the latest checkpoint at the same batch of the same epoch with the same
+generator state, so an interrupted and resumed run takes the same steps as
+an uninterrupted one. Runs on the GPU unless --device cpu is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import threading
+import time
+
+log = logging.getLogger("jyutvoice_tpu_torch.train")
+
+_STOP = threading.Event()
+
+
+def request_stop() -> None:
+    """Ask a running `main` to stop at the next step boundary (what SIGTERM
+    and SIGINT do) and save a resumable checkpoint."""
+    _STOP.set()
+
+
+def _install_stop_handlers():
+    """SIGTERM/SIGINT -> request_stop; returns the previous handlers, or
+    None off the main thread, where signals cannot be handled."""
+    if threading.current_thread() is not threading.main_thread():
+        return None
+    return {sig: signal.signal(sig, lambda *_: request_stop())
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+
+
+def validation_pass(trainer, dm):
+    """Row-weighted mean of the eval-mode losses over the validation rows,
+    or None when there are none."""
+    totals, rows = {}, 0
+    for batch in dm.valid_batches():
+        b = batch["x"].shape[0]
+        for k, v in trainer.evaluate(batch).items():
+            totals[k] = totals.get(k, 0.0) + b * float(v)
+        rows += b
+    return {k: v / rows for k, v in totals.items()} if rows else None
+
+
+def main(argv=None, cfg=None):
+    parser = argparse.ArgumentParser(description="JyutVoice training (PyTorch port)")
+    parser.add_argument("--dataset", default=None,
+                        help="HF dataset directory (needs the `datasets` package)")
+    parser.add_argument("--dummy", action="store_true", help="synthetic smoke data")
+    parser.add_argument("--dummy-rows", type=int, default=64,
+                        help="synthetic row count (with --dummy)")
+    parser.add_argument("--dummy-mel", default="48,160",
+                        help="LO,HI synthetic mel-frame range (with --dummy)")
+    parser.add_argument("--ckpt-dir", default="checkpoints")
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--batch-size", type=int, default=None)
+    parser.add_argument("--lr", type=float, default=None)
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--save-every", type=int, default=500)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--validate-only", action="store_true",
+                        help="run one eval-mode validation pass and exit")
+    parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+
+    import dataclasses
+
+    import torch
+
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.models.tts import TTS
+    from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
+    from jyutvoice_tpu_torch.train import checkpoints as ckpt
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
+    from jyutvoice_tpu_torch.train.prefetch import prefetch
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but no CUDA device is available; "
+                               "pass --device cpu to train on the CPU")
+        disable_tf32()
+    cfg = cfg or JyutVoiceConfig()
+    tr = cfg.train
+    if args.epochs:
+        tr = dataclasses.replace(tr, max_epochs=args.epochs)
+    if args.batch_size:
+        tr = dataclasses.replace(tr, batch_size=args.batch_size)
+    if args.lr:
+        tr = dataclasses.replace(tr, learning_rate=args.lr)
+
+    log.warning("training from random weights (seed %d)", args.seed)
+    model = load_jax_params(TTS(cfg.tts), random_init.init_tts_tree(cfg.tts, seed=args.seed))
+    model = model.to(device)
+    dm_cfg = DataConfig(batch_size=tr.batch_size, seed=args.seed)
+    if args.dummy or not args.dataset:
+        log.warning("using dummy dataset (smoke mode)")
+        lo, hi = (int(v) for v in args.dummy_mel.split(","))
+        dm = TextMelDataModule(dummy_rows(args.dummy_rows, seed=args.seed, mel_frames=(lo, hi)),
+                               dm_cfg)
+    else:
+        dm = TextMelDataModule(args.dataset, dm_cfg)
+
+    trainer = Trainer(model, tr, torch.Generator(device=device).manual_seed(args.seed))
+    log.info("trainable parameters: %d tensors, %d values", len(trainer.params),
+             sum(p.numel() for p in trainer.params))
+    start_epoch, start_batch = 0, 0
+    if args.resume:
+        state = ckpt.restore(args.ckpt_dir, map_location=device)
+        if state is not None:
+            trainer.load_state_dict(state["trainer"])
+            start_epoch, start_batch = int(state["epoch"]), int(state["batch"])
+            log.info("resumed from step %d (epoch %d, batch %d)", trainer.step_count,
+                     start_epoch, start_batch)
+
+    if args.validate_only:
+        avg = validation_pass(trainer, dm)
+        if avg is None:
+            log.warning("no validation data")
+        else:
+            log.info("validate-only | val_loss %.4f (dur %.4f prior %.4f diff %.4f)",
+                     avg["loss"], avg["dur_loss"], avg["prior_loss"], avg["diff_loss"])
+        return avg
+
+    def snapshot(epoch, batch):
+        return {"trainer": trainer.state_dict(), "epoch": epoch, "batch": batch}
+
+    _STOP.clear()
+    previous = _install_stop_handlers()
+    metrics, epoch, pos = None, start_epoch, start_batch
+    try:
+        t_start = time.time()
+        stopped = False
+        for epoch in range(start_epoch, tr.max_epochs):
+            skip = start_batch if epoch == start_epoch else 0
+            pos = 0
+            for pos, batch in enumerate(prefetch(dm.train_batches(epoch)), start=1):
+                if pos <= skip:
+                    continue  # trained before the checkpoint this run resumed from
+                metrics = trainer.step(batch)
+                step = trainer.step_count
+                if step % args.log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    log.info("step %d | loss %.4f (dur %.4f prior %.4f diff %.4f) | grad %.3f "
+                             "| lr %.3e | %.2f steps/s", step, m["loss"], m["dur_loss"],
+                             m["prior_loss"], m["diff_loss"], m["grad_norm"], m["lr"],
+                             args.log_every / max(time.time() - t_start, 1e-9))
+                    t_start = time.time()
+                if step % args.save_every == 0:
+                    ckpt.save(args.ckpt_dir, step, snapshot(epoch, pos))
+                if (args.max_steps and step >= args.max_steps) or _STOP.is_set():
+                    stopped = True
+                    if _STOP.is_set():
+                        log.warning("stop requested: stopping at step %d (resumable "
+                                    "checkpoint follows)", step)
+                    break
+            if stopped:
+                break
+            avg = validation_pass(trainer, dm)
+            if avg:
+                log.info("epoch %d | val_loss %.4f (dur %.4f prior %.4f diff %.4f)", epoch,
+                         avg["loss"], avg["dur_loss"], avg["prior_loss"], avg["diff_loss"])
+                ckpt.save_best(args.ckpt_dir, trainer.step_count, snapshot(epoch + 1, 0),
+                               val_loss=avg["loss"])
+        # an interrupted run resumes after its last batch; a finished one
+        # resumes past its last epoch (and so does nothing more)
+        final = snapshot(epoch, pos) if stopped else snapshot(tr.max_epochs, 0)
+        ckpt.save(args.ckpt_dir, trainer.step_count, final)
+        log.info("done at step %d", trainer.step_count)
+    finally:
+        if previous is not None:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+    return {"step": trainer.step_count,
+            "metrics": {k: float(v) for k, v in (metrics or {}).items()}}
+
+
+if __name__ == "__main__":
+    main()

@@ -30,20 +30,30 @@
 // domain, one quad of lanes per pair of rows. A block walks only the key
 // tiles its rows can see: valid blocks stop at the length, padded blocks
 // start there. wgmma, TMA and warp specialisation are left for later work.
+//
+// For training, the launch also writes the backward's residuals (the f32
+// row max m and row sum l of the scaled scores, (B, H, T), as the stock
+// kernel's forward saves them). That is a second instantiation of the
+// kernel, so the inference launch (null pointers) compiles as before.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
+
+using jv::cp_async16;
+using jv::cp_async_commit;
+using jv::cp_async_wait;
+using jv::FULL;
+using jv::LOG2E;
+using jv::mma_bf16;
+using jv::pack_bf16;
+using jv::Strides;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
 constexpr int WARPS = 4;  // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
 constexpr float NEG_BIG = -1e30f;  // a masked score
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned FULL = 0xffffffffu;
 
 template <int D>
 struct Smem {
@@ -56,43 +66,11 @@ struct Smem {
   static constexpr size_t bytes = sizeof(float) * 2 * STAGE;
 };
 
-struct Strides {
-  long long b, t, h;
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// c += a . b for one 16x8 tile, a 16x16 (row), b 16x8 (col), bf16 -> f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int D>
+template <int D, bool kResiduals>
 __global__ void __launch_bounds__(THREADS)
 flash_stock_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
                    const int* __restrict__ lengths, int T, int H, Strides qs,
                    Strides ks, Strides vs, float scale_log2) {
   using S = Smem<D>;
@@ -267,6 +245,15 @@ flash_stock_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l[i] += __shfl_xor_sync(FULL, l[i], 2);
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 1.f;
   }
+  if (kResiduals && tg == 0) {
+    // residuals for the backward, (B, H, T): the row max in the natural-log
+    // domain of the scaled scores and the sum of exp(s - max)
+    const long long row0 = (long long)bh * T + r0;
+    m_out[row0] = m[0] * jv::LN2;
+    m_out[row0 + 8] = m[1] * jv::LN2;
+    l_out[row0] = l[0];
+    l_out[row0 + 8] = l[1];
+  }
   float* ob = o + ((long long)b * T * H + h) * D;
   const long long row_stride = (long long)H * D;
 #pragma unroll
@@ -279,31 +266,46 @@ flash_stock_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   const int* lengths, int B, int T, int H, Strides qs, Strides ks,
-                   Strides vs, float scale, cudaStream_t stream) {
+template <int D, bool kResiduals>
+cudaError_t launch_as(const float* q, const float* k, const float* v, float* o, float* m_out,
+                      float* l_out, const int* lengths, int B, int T, int H, Strides qs,
+                      Strides ks, Strides vs, float scale, cudaStream_t stream) {
   constexpr size_t bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_stock_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = cudaFuncSetAttribute(flash_stock_kernel<D, kResiduals>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(T / BQ, B * H);
-  flash_stock_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      q, k, v, o, lengths, T, H, qs, ks, vs, scale * LOG2E);
+  flash_stock_kernel<D, kResiduals><<<grid, THREADS, bytes, stream>>>(
+      q, k, v, o, m_out, l_out, lengths, T, H, qs, ks, vs, scale * LOG2E);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* m_out,
+                   float* l_out, const int* lengths, int B, int T, int H, Strides qs,
+                   Strides ks, Strides vs, float scale, cudaStream_t stream) {
+  if (m_out != nullptr && l_out != nullptr)
+    return launch_as<D, true>(q, k, v, o, m_out, l_out, lengths, B, T, H, qs, ks, vs, scale,
+                              stream);
+  return launch_as<D, false>(q, k, v, o, nullptr, nullptr, lengths, B, T, H, qs, ks, vs, scale,
+                             stream);
 }
 
 }  // namespace
 
+// m_out and l_out ((B, H, T) f32) are written only when both are non-null,
+// by the residual instantiation; the inference launch does no extra work.
 extern "C" int jv_flash_stock_fwd(
-    const float* q, const float* k, const float* v, float* o, const int* lengths,
-    int B, int T, int H, int D, long long q_sb, long long q_st, long long q_sh,
+    const float* q, const float* k, const float* v, float* o, float* m_out, float* l_out,
+    const int* lengths, int B, int T, int H, int D, long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
     long long v_sh, float scale, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || T % BQ) return (int)cudaErrorInvalidValue;
   Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(q, k, v, o, lengths, B, T, H, qs, ks, vs, scale, st);
-  if (D == 128) return (int)launch<128>(q, k, v, o, lengths, B, T, H, qs, ks, vs, scale, st);
+  if (D == 64)
+    return (int)launch<64>(q, k, v, o, m_out, l_out, lengths, B, T, H, qs, ks, vs, scale, st);
+  if (D == 128)
+    return (int)launch<128>(q, k, v, o, m_out, l_out, lengths, B, T, H, qs, ks, vs, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,9 @@ headers it includes (`#include "..."`), so an edited source or header
 rebuilds and an unchanged one is reused. `build_all()` starts one nvcc per
 source at once.
 
-`LAUNCHES` counts kernel launches per kernel. A wrapper adds one where it
-launches its kernel and nowhere else; `reset_launch_counts()` zeroes them.
+`LAUNCHES` counts kernel launches per kernel entry point. A wrapper adds one
+where it launches its kernel and nowhere else; `reset_launch_counts()`
+zeroes them.
 """
 
 from __future__ import annotations
@@ -22,16 +23,22 @@ import tempfile
 import threading
 from typing import Dict
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("flash_attention", "resblock_stage", "flash_stock")
+KERNEL_SOURCES = ("flash_attention", "resblock_stage", "flash_stock", "flash_stock_bwd")
+# entry points counted in LAUNCHES: kernels 1-3, then kernels 4 and 5 (the
+# two entry points of csrc/flash_stock_bwd.cu)
+KERNEL_NAMES = ("flash_attention", "resblock_stage", "flash_stock",
+                "flash_stock_bwd_dkv", "flash_stock_bwd_dq")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -108,6 +115,16 @@ def load(name: str) -> ctypes.CDLL:
             _finish_build(name, _start_build(name))
             lib = _LIBS.setdefault(name, ctypes.CDLL(_lib_path(name)))
     return lib
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a gradient through a forward-only
+    kernel: its output would carry no grad_fn and silently cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only (the JAX package has no backward for it): "
+            "call it under torch.no_grad() or on tensors that need no gradient"
+        )
 
 
 def check(status: int, name: str) -> None:

@@ -19,6 +19,13 @@ banded gate (`use_banded`) and the stock-flash gate (`use_stock_flash`,
 kernel 3); otherwise exact attention through kernel 1. The JAX package takes
 the two gates only on its accelerator, so on the CPU both packages compute
 exact attention and the parity tests compare like with like.
+
+Training (`training=True`, from `cfm_loss`) applies the JAX package's
+rewrite for the loss: no banded attention of either kind, the stock-flash
+gate kept. So a training call takes kernel 3 with its backward (kernels 4
+and 5) on CUDA tensors at 512-aligned T >= 2048, and otherwise "plain"
+attention (`sdpa` with the key-padding bias, f32), the counterpart of the
+JAX package's XLA `plain_mha`, which it trains with at those lengths.
 """
 
 from __future__ import annotations
@@ -72,19 +79,28 @@ ATTENTION_MODES = ("auto", "banded", "exact")
 
 def attention_route(
     cfg: EstimatorConfig, t: int, chunk: int, attention: str = "auto",
-    on_cuda: bool = True,
+    on_cuda: bool = True, training: bool = False,
 ) -> str:
     """The attention backend of one estimator call: "banded", "flash_stock"
-    (kernel 3) or "flash" (kernel 1).
+    (kernel 3), "flash" (kernel 1) or, in training, "plain".
 
     `attention` is the per-call long-form mode: "banded" acts as the
     config's attention_backend="banded", "exact" as banded_long_threshold=0
-    (the stock-flash gate stays), "auto" keeps the config."""
+    (the stock-flash gate stays), "auto" keeps the config. `training` is
+    the loss's rewrite (`cfm.py::cfm_loss` in the JAX package): an explicit
+    banded backend becomes "xla" and the banded gate is off, so only the
+    stock-flash gate remains (on CUDA, for "xla"); every other case is
+    "plain", since kernel 1 has no backward."""
     if attention not in ATTENTION_MODES:
         raise ValueError(
             f"unknown long-form attention {attention!r} "
             "(use 'auto', 'banded' or 'exact')"
         )
+    if training:
+        backend = cfg.attention_backend
+        if on_cuda and backend in ("xla", "banded") and use_stock_flash(t, chunk):
+            return "flash_stock"
+        return "plain"
     if attention == "exact":
         cfg = dataclasses.replace(cfg, banded_long_threshold=0)
     if attention == "banded" or cfg.attention_backend == "banded":
@@ -190,17 +206,18 @@ class Estimator(nn.Module):
     def forward(
         self, x: Tensor, mask: Tensor, mu: Tensor, t: Tensor, spks: Tensor,
         cond: Tensor, streaming: bool = False, attention: str = "auto",
+        training: bool = False,
     ) -> Tensor:
         """x, mu, cond (B, T, 80); mask (B, T, 1) prefix mask; t (B,);
-        spks (B, 80); attention the long-form mode of `attention_route`.
-        Returns the velocity (B, T, 80)."""
+        spks (B, 80); attention the long-form mode of `attention_route`,
+        training its loss rewrite. Returns the velocity (B, T, 80)."""
         cfg = self.cfg
         b, seq, _ = x.shape
         t_emb = self.time_mlp(sinusoidal_pos_emb(t, cfg.in_channels).to(x.dtype))
         spks_t = spks[:, None, :].to(x.dtype).expand(b, seq, spks.shape[-1])
         h = torch.cat([x, mu, spks_t, cond], dim=-1)
         chunk = cfg.static_chunk_size if streaming else 0
-        backend = attention_route(cfg, seq, chunk, attention, x.is_cuda)
+        backend = attention_route(cfg, seq, chunk, attention, x.is_cuda, training)
         attn_ctx = {
             "lengths": mask[:, :, 0].sum(dim=1).to(torch.int32),
             "n_heads": cfg.num_heads,
@@ -210,6 +227,9 @@ class Estimator(nn.Module):
             attn_ctx.update(chunk_size=chunk, num_left_chunks=cfg.num_decoding_left_chunks)
         elif backend == "banded":
             attn_ctx["band"] = (cfg.banded_chunk, cfg.banded_left, cfg.banded_right)
+        elif backend == "plain":
+            keep = core.chunk_attn_mask(mask[:, :, 0] > 0, chunk, cfg.num_decoding_left_chunks)
+            attn_ctx["bias"] = core.mask_to_bias(keep)[:, None]
         h = self.down(h, mask, t_emb, attn_ctx)
         skip = h
         h = self.down_conv(h * mask, padding="causal")

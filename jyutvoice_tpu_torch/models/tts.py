@@ -1,8 +1,9 @@
-"""The acoustic model: text + optional voice-cloning prompt -> mel.
+"""The acoustic model: text + optional voice-cloning prompt -> mel, and its
+training losses.
 
-The counterpart of the JAX package's `models/tts.py::synthesize_mel` at
-padded bucket shapes: text bucket T_text, mel bucket T_mel, prompt bucket
-T_prompt. Two details are kept exactly:
+The counterpart of the JAX package's `models/tts.py`: `synthesize_mel` at
+padded bucket shapes (text bucket T_text, mel bucket T_mel, prompt bucket
+T_prompt) and `compute_losses`. Two details of synthesis are kept exactly:
   * durations are ceil(w) * length_scale, i.e. the scale comes AFTER the ceil,
     so fractional "durations" feed the cumulative sum;
   * the generated frames are grafted right after the TRUE prompt length, so
@@ -11,14 +12,16 @@ T_prompt. Two details are kept exactly:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
+from jyutvoice_tpu_torch.align import maximum_path
 from jyutvoice_tpu_torch.config import TTSConfig
-from jyutvoice_tpu_torch.models.cfm import cfm_forward
-from jyutvoice_tpu_torch.models.duration import DurationPredictor
+from jyutvoice_tpu_torch.models.cfm import cfm_forward, cfm_loss
+from jyutvoice_tpu_torch.models.duration import DurationPredictor, duration_loss
 from jyutvoice_tpu_torch.models.estimator import Estimator
 from jyutvoice_tpu_torch.models.text_encoder import TextEncoder
 from jyutvoice_tpu_torch.nn import core
@@ -112,3 +115,92 @@ def synthesize_mel(
         attn=attn,
         durations=w_ceil[:, :, 0],
     )
+
+
+class TrainLosses(NamedTuple):
+    dur_loss: Tensor
+    prior_loss: Tensor
+    diff_loss: Tensor
+    total: Tensor
+    attn: Tensor  # (B, T_text, T_mel) MAS alignment
+
+
+def compute_losses(
+    model: TTS,
+    generator: Optional[torch.Generator],
+    x_ids: Tensor,
+    x_lengths: Tensor,
+    y_mel: Tensor,  # (B, T_mel, 80) target mel
+    y_lengths: Tensor,
+    lang: Tensor,
+    tone: Tensor,
+    word_pos: Tensor,
+    syllable_pos: Tensor,
+    spk_embed: Tensor,
+    decoder_h: Tensor,  # (B, T_mel, 80) frozen flow-encoder hidden states
+    *,
+    diff_loss_weight: float = 0.1,
+    cond_prob: float = 0.5,
+    cond_max_ratio: float = 0.3,
+    cfm_overrides: Optional[dict] = None,
+    train_dropout: bool = True,
+) -> TrainLosses:
+    """Training losses: duration, prior and diffusion, and their total
+    dur + prior + diff_loss_weight * diff.
+
+    MAS aligns text to mel over the Gaussian log-prior of the detached
+    encoder means; its path gives the duration target and mu_y = attn^T mu,
+    through which the diffusion loss backpropagates into the encoder across
+    the frozen decoder. A prefix of the target mel is teacher-forced as
+    `conds` with probability 1 - cond_prob.
+
+    Random draws come from `generator`, in this order: the encoder's and
+    then the duration predictor's dropout (with `train_dropout`), the cond
+    draws (use-cond (B,) uniform, then the prefix fraction (B,) uniform),
+    then `cfm_loss`'s (t, z, keep; `cfm_overrides` fixes them)."""
+    cfg = model.cfg
+    drop = dict(generator=generator, deterministic=not train_dropout)
+    c = model.spk_embed_affine_layer(l2_normalize(spk_embed, dim=1))
+    enc = model.encoder(x_ids, x_lengths, lang, tone, word_pos, syllable_pos, spk_embed, **drop)
+    logw = model.dp(enc.x, enc.x_mask, spk_embed, **drop)
+
+    b, t_mel, n_feats = y_mel.shape
+    y_mask = core.sequence_mask(y_lengths, t_mel).to(enc.x_mask.dtype)
+    attn_mask = enc.x_mask[:, :, 0][:, :, None] * y_mask[:, None, :]
+
+    # MAS over the Gaussian log-prior, outside the graph
+    with torch.no_grad():
+        mu_x = enc.mu.detach()
+        h = decoder_h
+        const = -0.5 * math.log(2 * math.pi) * n_feats
+        h_sq = -0.5 * torch.sum(torch.square(h), dim=-1)[:, None, :]
+        h_mu = torch.einsum("btf,bmf->btm", mu_x, h)
+        mu_sq = -0.5 * torch.sum(torch.square(mu_x), dim=-1)[:, :, None]
+        log_prior = h_sq + h_mu + mu_sq + const  # (B, T_text, T_mel)
+        attn = maximum_path(log_prior, attn_mask)
+
+    logw_target = torch.log(1e-8 + torch.sum(attn, dim=-1))[:, :, None] * enc.x_mask
+    dur_loss = duration_loss(logw, logw_target, x_lengths)
+
+    # prefix teacher-forcing of conds
+    use_cond = torch.rand((b,), generator=generator, device=y_mel.device) >= cond_prob
+    frac = torch.rand((b,), generator=generator, device=y_mel.device)
+    cond_len = (frac * cond_max_ratio * y_lengths.float()).to(torch.int32)
+    cond_len = torch.where(use_cond, cond_len, 0)
+    pos = torch.arange(t_mel, device=y_mel.device)
+    cond_mask = (pos[None, :] < cond_len[:, None]).to(y_mel.dtype)[..., None]
+    conds = y_mel * cond_mask
+
+    mu_y = torch.einsum("btm,btf->bmf", attn, enc.mu)
+    diff_loss, _ = cfm_loss(
+        model.decoder, cfg.cfm, generator, y_mel, y_mask[..., None], mu_y, c, conds,
+        **(cfm_overrides or {}),
+    )
+
+    prior_loss = torch.sum(
+        0.5 * (torch.square(decoder_h - mu_y) + math.log(2 * math.pi)) * y_mask[..., None]
+    )
+    prior_loss = prior_loss / (torch.sum(y_mask[..., None]) * n_feats)
+
+    total = dur_loss + prior_loss + diff_loss_weight * diff_loss
+    return TrainLosses(dur_loss, prior_loss, diff_loss, total, attn)

@@ -23,15 +23,18 @@ Tensor = torch.Tensor
 
 def sdpa(
     q: Tensor, k: Tensor, v: Tensor, bias: Optional[Tensor] = None,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, prob_dropout: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Tensor:
     """f32 scaled dot-product attention. q/k/v (B, H, T, D); bias additive,
-    broadcastable to (B, H, Tq, Tk). Returns (B, H, Tq, D)."""
+    broadcastable to (B, H, Tq, Tk); `prob_dropout` drops attention
+    probabilities with draws from `generator`. Returns (B, H, Tq, D)."""
     scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else scale
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if bias is not None:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1)
+    probs = core.dropout(probs, prob_dropout, generator, False)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
@@ -79,7 +82,10 @@ class RopeMHA(nn.Module):
         self.v = core.Linear(channels, channels)
         self.o = core.Linear(channels, out_channels)
 
-    def forward(self, x: Tensor, attn_bias: Optional[Tensor], n_heads: int) -> Tensor:
+    def forward(
+        self, x: Tensor, attn_bias: Optional[Tensor], n_heads: int,
+        prob_dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
         b, t, c = x.shape
         head_dim = c // n_heads
         d_rope = int(head_dim * 0.5)
@@ -91,7 +97,8 @@ class RopeMHA(nn.Module):
         cos, sin = rope_cos_sin(t, d_rope, device=x.device)
         q = apply_rope(q, cos, sin, d_rope)
         k = apply_rope(k, cos, sin, d_rope)
-        out = sdpa(q, k, v, attn_bias, scale=1.0 / math.sqrt(head_dim))
+        out = sdpa(q, k, v, attn_bias, scale=1.0 / math.sqrt(head_dim),
+                   prob_dropout=prob_dropout, generator=generator)
         return self.o(merge_heads(out))
 
 
@@ -168,7 +175,10 @@ class PlainMHA(nn.Module):
     The core is chosen by `backend`, as the estimator's dispatch decides:
     "flash" is kernel 1 (`flash_attention`, key padding and the streaming
     chunk rule), "flash_stock" is kernel 3 (`flash_stock`, segment ids from
-    the lengths) and "banded" is `banded_mha`. The kernels run on CUDA
+    the lengths; differentiable through kernels 4 and 5), "banded" is
+    `banded_mha` and "plain" is `sdpa` with an additive mask bias, the
+    counterpart of the JAX package's XLA `plain_mha`, which training takes
+    where the stock-flash gate does not fire. The kernels run on CUDA
     tensors and their plain versions on CPU tensors."""
 
     def __init__(self, query_dim: int, n_heads: int, head_dim: int):
@@ -187,16 +197,22 @@ class PlainMHA(nn.Module):
     def forward(
         self, x: Tensor, lengths: Tensor, n_heads: int, backend: str = "flash",
         chunk_size: int = 0, num_left_chunks: int = -1, band=None,
+        bias: Optional[Tensor] = None,
     ) -> Tensor:
         """x (B, T, C); lengths (B,) int32 valid key lengths; chunk_size and
         num_left_chunks are kernel 1's streaming rule, band the banded
-        backend's (chunk, left, right)."""
+        backend's (chunk, left, right), bias the plain backend's additive
+        (B, 1, T, T) mask bias."""
         if backend == "banded":
             chunk, left, right = band
             return banded_mha(self, x, lengths, n_heads, chunk=chunk, left=left, right=right)
         b, t, _ = x.shape
         q, k, v = self.project(x, n_heads)
         scale = 1.0 / math.sqrt(q.shape[-1])
+        if backend == "plain":
+            out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias,
+                       scale=scale)
+            return self.o(merge_heads(out))
         if backend == "flash_stock":
             out = flash_stock(q, k, v, lengths, scale=scale)
         elif backend == "flash":

@@ -184,6 +184,19 @@ def leaky_relu(x: Tensor, slope: float) -> Tensor:
     return torch.where(x >= 0, x, x * slope)
 
 
+def dropout(
+    x: Tensor, rate: float, generator: Optional[torch.Generator], deterministic: bool
+) -> Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The identity when deterministic,
+    at rate 0 or without a generator. Draws come from `generator` only (its
+    device must be x's), never from the global RNG."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Masks and alignment
 # ---------------------------------------------------------------------------

@@ -116,7 +116,9 @@ def flash_attention(
     num_left_chunks: int = -1,
 ) -> torch.Tensor:
     """(B, T, H, D) q/k/v + (B,) lengths -> (B, T, H, D). CUDA tensors launch
-    the kernel; CPU tensors take the plain version."""
+    the kernel; CPU tensors take the plain version. Forward only: raises
+    when autograd would need a gradient through it."""
+    kernels.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, lengths, scale=scale, chunk_size=chunk_size,

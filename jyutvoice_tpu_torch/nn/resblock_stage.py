@@ -117,7 +117,9 @@ def resblock_stage(
     dilations: Tuple[int, ...],
 ) -> torch.Tensor:
     """(B, T, C) -> (B, T, C). CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    take the plain version. Forward only: raises when autograd would need a
+    gradient through it."""
+    kernels.refuse_autograd("resblock_stage", x, weights)
     if x.device.type == "cpu":
         return resblock_stage_plain(
             x, weights, kernel_sizes=kernel_sizes, dilations=dilations

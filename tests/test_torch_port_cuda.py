@@ -5,7 +5,9 @@ JAX, so on a GPU machine without JAX it runs without the suite's conftest:
     python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
 Tolerances as in test_torch_port_kernels.py: attention atol 5e-3 / rtol 2e-2
 on valid rows, ResBlock stage atol 2e-5 / rtol 1e-4; kernel 3 (stock flash)
-atol 5e-3 / rtol 1e-2 on every row, as in test_torch_port_longform.py.
+atol 5e-3 / rtol 1e-2 on every row, as in test_torch_port_longform.py;
+kernels 4 and 5 (its backward) max |err| / max |ref| <= 1e-2 for each of dq,
+dk and dv on every row (bf16 products, f32 accumulation).
 """
 
 import pytest
@@ -135,7 +137,7 @@ def test_small_synthesizer_goes_through_both_kernels(cuda):
     assert kernels.LAUNCHES == {
         "flash_attention": 2 * (est.num_mid_blocks + 2) * est.n_blocks,
         "resblock_stage": 3,  # base 64: all three stages have C <= 128
-        "flash_stock": 0,
+        "flash_stock": 0, "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
     }
 
 
@@ -155,3 +157,114 @@ def test_small_long_form_request_goes_through_kernel_3(cuda):
     est = synth.cfg.tts.cfm.estimator
     assert kernels.LAUNCHES["flash_stock"] == 2 * (est.num_mid_blocks + 2) * est.n_blocks
     assert kernels.LAUNCHES["flash_attention"] == 0
+
+
+BWD_BAR = 1e-2  # max |kernel - plain| / max |plain|, per gradient
+
+
+def _qkv_views(g, b, t, h, d, device):
+    """Strided (B, T, H, D) views of one (B, T, 3*H*D) tensor, as the
+    estimator's projections are."""
+    qkv = torch.randn(b, t, 3 * h * d, device=device, generator=g)
+    return [x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1)]
+
+
+@pytest.mark.parametrize(
+    "t,lengths,d",
+    [(2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (512, [1, 512], 64),
+     (640, [0, 333], 64), (1024, [700, 1024], 128), (256, [100, 191], 64)],
+)
+def test_flash_stock_backward_kernels_match_plain(cuda, t, lengths, d):
+    from jyutvoice_tpu_torch.nn.flash_stock import (
+        flash_stock,
+        flash_stock_bwd,
+        flash_stock_bwd_plain,
+        flash_stock_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = _qkv_views(g, len(lengths), t, 8, d, cuda)
+    do = torch.randn(len(lengths), t, 8, d, device=cuda, generator=g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    scale = d ** -0.5
+    o, m, l = flash_stock(q, k, v, lens, scale=scale, residuals=True)
+    o_ref, m_ref, l_ref = flash_stock_plain(q, k, v, lens, scale=scale, residuals=True)
+    torch.testing.assert_close(o, o_ref, atol=5e-3, rtol=1e-2)
+    torch.testing.assert_close(m, m_ref, atol=5e-3, rtol=1e-2)
+    # l scales with the row max, which the bf16 products move: compare the
+    # log-sum-exp m + log l
+    torch.testing.assert_close(m + torch.log(l), m_ref + torch.log(l_ref), atol=5e-3, rtol=1e-2)
+    got = flash_stock_bwd(q, k, v, o, do, m, l, lens, scale=scale)
+    want = flash_stock_bwd_plain(q, k, v, o, do, m, l, lens, scale=scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.shape == y.shape and x.is_contiguous()
+        rel = float((x - y).abs().max() / y.abs().max())
+        assert rel <= BWD_BAR, f"{name}: max |err| / max |ref| = {rel:.3e}"
+
+
+def test_flash_stock_autograd_runs_kernels_3_4_5(cuda):
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn.flash_stock import flash_stock, flash_stock_plain
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    t, lengths, d = 2048, [2048, 1500], 64
+    base = [torch.randn(2, t, 8, d, device=cuda, generator=g) for _ in range(3)]
+    do = torch.randn(2, t, 8, d, device=cuda, generator=g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    leaves = [x.clone().requires_grad_() for x in base]
+    kernels.reset_launch_counts()
+    flash_stock(*leaves, lens, scale=d ** -0.5).backward(do)
+    assert kernels.LAUNCHES["flash_stock"] == 1
+    assert kernels.LAUNCHES["flash_stock_bwd_dkv"] == 1
+    assert kernels.LAUNCHES["flash_stock_bwd_dq"] == 1
+    plain = [x.clone().requires_grad_() for x in base]
+    flash_stock_plain(*plain, lens, scale=d ** -0.5).backward(do)
+    for name, x, y in zip(("dq", "dk", "dv"), leaves, plain):
+        rel = float((x.grad - y.grad).abs().max() / y.grad.abs().max())
+        assert rel <= BWD_BAR, f"{name}: {rel:.3e}"
+
+
+def test_forward_only_wrappers_raise_under_autograd(cuda):
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn.flash_attention import flash_attention
+    from jyutvoice_tpu_torch.nn.resblock_stage import resblock_stage
+
+    kernels.reset_launch_counts()
+    q = torch.zeros(1, 64, 1, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_attention(q, q, q, torch.tensor([64], dtype=torch.int32, device=cuda), scale=1.0)
+    x = torch.zeros(1, 64, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        resblock_stage(x, torch.zeros(1, device=cuda), kernel_sizes=(3,), dilations=(1,))
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_small_training_step_launch_counts(cuda):
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch import config as port_config
+    from jyutvoice_tpu_torch.models.tts import TTS
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, collate, dummy_rows, row_to_example
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    m = port_config
+    cfg = m.TTSConfig(
+        encoder=m.TextEncoderConfig(n_layers=1, filter_channels=64),
+        cfm=m.CFMConfig(estimator=m.EstimatorConfig(n_blocks=1, num_mid_blocks=1)),
+    )
+    model = load_jax_params(TTS(cfg), random_init.init_tts_tree(cfg)).to(cuda)
+    dc = DataConfig(batch_size=2)
+    batch = collate([row_to_example(r, dc) for r in dummy_rows(2, mel_frames=(1600, 2000))], dc)
+    assert batch["y"].shape[1] == 2048
+    trainer = Trainer(model, m.TrainConfig(), torch.Generator(device=cuda).manual_seed(0))
+    decoder = {n: p.detach().clone() for n, p in model.decoder.named_parameters()}
+    kernels.reset_launch_counts()
+    metrics = trainer.step(batch)
+    per_call = (cfg.cfm.estimator.num_mid_blocks + 2) * cfg.cfm.estimator.n_blocks
+    assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0,
+                                "flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
+                                "flash_stock_bwd_dq": per_call}
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    for n, p in model.decoder.named_parameters():
+        assert torch.equal(p, decoder[n]), n

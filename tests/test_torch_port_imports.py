@@ -1,7 +1,7 @@
 """The port stands alone: no module of `jyutvoice_tpu_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package or names a path into it, the
-port reads its own copy of the LTS rule table, and it synthesizes in a
-process where JAX and the JAX package are import-blocked."""
+port reads its own copy of the LTS rule table, and it synthesizes and trains
+in a process where JAX and the JAX package are import-blocked."""
 
 import ast
 import os
@@ -130,3 +130,28 @@ def test_port_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_STANDALONE_OK" in proc.stdout
+
+
+_TRAIN_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+import tempfile
+
+from jyutvoice_tpu_torch.cli import train
+
+with tempfile.TemporaryDirectory() as d:
+    out = train.main(["--device", "cpu", "--dummy", "--dummy-rows", "6", "--batch-size", "2",
+                      "--max-steps", "2", "--ckpt-dir", d], cfg=cfg)
+assert out["step"] == 2 and np.isfinite(out["metrics"]["loss"])
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_TRAINS_STANDALONE_OK", out["metrics"]["loss"])
+"""
+
+
+def test_port_trains_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAIN_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_TRAINS_STANDALONE_OK" in proc.stdout

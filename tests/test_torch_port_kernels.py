@@ -172,5 +172,8 @@ def test_wrappers_take_plain_path_only_on_cpu():
     resblock_stage(torch.zeros(1, 10, 16), pack_stage_weights(port_br, DIL),
                    kernel_sizes=KS, dilations=DIL)
     flash_stock(q, q, q, torch.tensor([8], dtype=torch.int32), scale=0.125)
-    assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0, "flash_stock": 0}
+    qg = q.clone().requires_grad_()
+    flash_stock(qg, q, q, torch.tensor([8], dtype=torch.int32), scale=0.125).sum().backward()
+    assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0, "flash_stock": 0,
+                                "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0}
     assert not kernels._LIBS

@@ -229,8 +229,8 @@ def test_estimator_stock_flash_route_matches_jax(monkeypatch):
     real_route = pest.attention_route
     monkeypatch.setattr(
         pest, "attention_route",
-        lambda cfg, t, chunk, attention="auto", on_cuda=True:
-            routes.append(real_route(cfg, t, chunk, attention, True)) or routes[-1],
+        lambda cfg, t, chunk, attention="auto", on_cuda=True, training=False:
+            routes.append(real_route(cfg, t, chunk, attention, True, training)) or routes[-1],
     )
     monkeypatch.setattr(pattn, "flash_stock", lambda *a, **k: calls.append(1) or flash_stock(*a, **k))
     ins = _estimator_inputs(2048, [2048, 1700])
