@@ -6,23 +6,36 @@
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off (parity with the f32 reference path);
-  2. build: the three CUDA kernels from jyutvoice_tpu_torch/csrc/, nvcc in
-     parallel;
-  3. kernel 1 (flash attention) against its plain version at the estimator's
-     shapes (T = 512, 576, 640, chunk rules 50/-1 and 100/2), with CUDA-event
-     times of the kernel, the plain version and torch's SDPA as a yardstick;
+  2. build: the four CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
+     nvcc in parallel; per compiled kernel, ptxas's registers and spills and
+     the count of HGMMA (wgmma) instructions in its SASS (kernels 1 and 3
+     must have them);
+  3. kernel 1 (flash attention) against its plain version on the valid rows
+     at the estimator's shapes (T = 512, 576, 640, chunk rules 50/-1 and
+     100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128), with
+     CUDA-event times (median of 3 loops, after warming the card) of the
+     kernel, the plain version and torch's SDPA as a yardstick; device-only
+     times (CUDA graph replay: back to back, these launches are bound by the
+     host) and the wrapper's host cost per call at T = 512-640, and the
+     kernel line's kernel 1 times are those device times at T = 512;
+     then kernel 1 and SDPA alone at T = 15000 and 15512 (the top mel
+     bucket) beside the bound;
   4. kernel 3 (stock flash, segment ids) against its plain version on every
-     row at the long-form shapes (T = 2048, 2560, 4096), with the times of
-     the kernel, the plain version, SDPA with the segment mask, and the
-     banded attention the long-form gate takes instead; then kernel 3 and
-     banded times alone at T = 8192, 12288, 15360;
+     row at the long-form shapes (T = 2048, 2560, 4096), at T = 2112
+     (T % 128 == 64) with lengths 1, 63, 65, 2111, and at D = 128, with the
+     times of the kernel, the plain version, SDPA with the segment mask,
+     and the banded attention the long-form gate takes instead, and the
+     host cost per call; then kernel 3 and banded times alone at T = 8192,
+     12288, 15360;
   5. kernel 2 (HiFT ResBlock stage) against its plain version at
      (C=128, T=20480) and (C=64, T=61441), batch 1 and 2;
   6. the main path: a full-width Synthesizer with seeded random weights
-     (default JyutVoiceConfig) answers 5 requests: one at the 512-frame mel
-     bucket twice (cold, then warm), raw Cantonese text, Mandarin, and one
-     with a voice-cloning prompt; one short request is checked against the
-     same model run on the CPU through the plain versions;
+     (default JyutVoiceConfig) answers 6 requests: one at the 512-frame mel
+     bucket twice (cold, then warm), raw Cantonese text, Mandarin, one
+     with a voice-cloning prompt, and one of about 13000 frames in the
+     15000-frame bucket (kernel 1 at T = 15000, no kernel 3); one short
+     request is checked against the same model run on the CPU through the
+     plain versions;
   7. the long-form path: synthesize_long with exact attention at 4096 frames
      (kernel 3), the same in auto mode (banded), exact with a 100-frame
      prompt (2560 frames in all, kernel 3), and synthesize past the
@@ -74,20 +87,73 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_time_ms(fn, iters, warmup=3):
+def cuda_time_ms(fn, iters, warmup=3, loops=3):
+    """Median over `loops` CUDA-event-timed loops of `iters` back-to-back
+    calls, after `warmup` calls: ms per call."""
+    import statistics
+
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    times = []
+    for _ in range(loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_time_ms(fn, launches=20, loops=3):
+    """Device ms per call without the host: `launches` calls captured in one
+    CUDA graph, replayed and timed as in cuda_time_ms."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-    end.record()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = cuda_time_ms(graph.replay, 10, loops=loops) / launches
+    graph.reset()  # frees the graph's memory pool for the later phases
+    return ms
+
+
+def host_us_per_call(fn, calls=1000):
+    """Host microseconds per call: perf_counter over back-to-back calls,
+    with no synchronisation inside (the enqueue cost)."""
+    import torch
+
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def warm_card(seconds=1.0):
+    """Bring the card to its load clocks before the first timed case."""
+    import torch
+
+    x = torch.randn(4096, 4096, device="cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    while time.perf_counter() - t < seconds:
+        for _ in range(20):
+            x @ x
+        torch.cuda.synchronize()
 
 
 def bound(bytes_moved, flops, peak_flops):
@@ -116,7 +182,22 @@ def phase_device():
     return smi
 
 
+def _short_kernel_name(mangled):
+    """flash_fwd_sm90's template arguments spelled out; other names as they are."""
+    import re
+
+    m = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELNS0_4RuleE(\d)ELb(\d)", mangled)
+    if not m:
+        return mangled
+    d, nc, ns, rule, res = m.groups()
+    return (f"flash_fwd_sm90<D={d}, consumers={nc}, stages={ns}, "
+            f"{('key band', 'segments')[int(rule)]}{', residuals' if res == '1' else ''}>")
+
+
 def phase_build():
+    """Build every kernel source (nvcc in parallel) and print, per compiled
+    kernel, ptxas's registers and spills and the count of HGMMA (wgmma)
+    instructions in its SASS."""
     from jyutvoice_tpu_torch import kernels
 
     t = time.perf_counter()
@@ -124,9 +205,23 @@ def phase_build():
     for name in kernels.KERNEL_SOURCES:
         kernels.load(name)
     log(f"build: {', '.join(kernels.KERNEL_SOURCES)} in {time.perf_counter() - t:.1f} s")
+    hgmma = {}
+    for name in kernels.KERNEL_SOURCES:
+        sass = kernels.sass_opcode_count(name, "HGMMA")
+        for func, facts in sorted(kernels.ptxas_facts(name).items()):
+            log(f"  {name}: {_short_kernel_name(func)}: {facts}, HGMMA in SASS: {sass.get(func, 0)}")
+        hgmma[name] = sass
+    for name in ("flash_attention", "flash_stock"):
+        if not hgmma[name] or not all(hgmma[name].values()):
+            fail(f"csrc/{name}.cu has a kernel without HGMMA in its SASS: {hgmma[name]}")
 
 
 def phase_flash():
+    """Kernel 1 against its plain version on the valid rows at the short
+    path's shapes, ragged T (a 64-frame prompt), T=4160 and D=128, with
+    steady CUDA-event times beside SDPA with the same mask; device-only
+    (CUDA graph) times and the wrapper's host cost at T=512-640; then
+    kernel 1 alone beside SDPA and its bound in the top mel bucket."""
     import torch
     import torch.nn.functional as F
 
@@ -137,11 +232,13 @@ def phase_flash():
     )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    b, h, d = 2, 8, 64  # the CFG-doubled batch of one request, 8 heads x 64
-    cases = [(512, [512, 389], 0, -1), (576, [576, 333], 0, -1), (640, [640, 501], 0, -1),
-             (640, [640, 600], 50, -1), (512, [400, 512], 100, 2)]
+    b, h = 2, 8  # the CFG-doubled batch of one request, 8 heads
+    cases = [(512, [512, 389], 0, -1, 64), (576, [576, 333], 0, -1, 64),
+             (640, [640, 501], 0, -1, 64), (640, [640, 600], 50, -1, 64),
+             (512, [400, 512], 100, 2, 64), (1600, [1600, 1100], 0, -1, 64),
+             (4160, [4160, 3001], 0, -1, 64), (640, [640, 501], 0, -1, 128)]
     worst, first = 0.0, None
-    for t, lens, chunk, left in cases:
+    for t, lens, chunk, left, d in cases:
         q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         kw = dict(scale=d ** -0.5, chunk_size=chunk, num_left_chunks=left)
@@ -153,24 +250,55 @@ def phase_flash():
             err = max(err, float((out[i, :n] - ref[i, :n]).abs().max()))
             ok &= within(out[i, :n], ref[i, :n], ATTN_TOL)
         worst = max(worst, err)
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, **kw), 200)
-        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, lengths, **kw), 20)
+        del ref
+        short = t <= 640
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, **kw), 200 if short else 20)
+        plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, lengths, **kw),
+                                20 if short else 3)
         keep = key_keep_mask(lengths, t, chunk, left)  # (B, 1, T, T)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        lib_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=kw["scale"]),
-            200,
-        )
-        pairs = int(keep.sum()) * h  # visible (query, key) pairs
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=kw["scale"])
+        lib_ms = cuda_time_ms(sdpa, 200 if short else 20)
+        pairs = int(keep.expand(-1, -1, t, -1).sum()) * h  # visible (query, key) pairs
         bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
-        log(f"flash T={t} lengths={lens} chunk={chunk}/{left}: max_abs_err={err:.3e} "
+        extra, dev = "", None
+        if short and d == 64:
+            # back to back, these launches are bound by the host (the
+            # wrapper's cost per call); CUDA-graph replay gives device times
+            dev = dict(ms=graph_time_ms(lambda: flash_attention(q, k, v, lengths, **kw)),
+                       plain_ms=graph_time_ms(
+                           lambda: flash_attention_plain(q, k, v, lengths, **kw)),
+                       library_ms=graph_time_ms(sdpa))
+            host_us = host_us_per_call(lambda: flash_attention(q, k, v, lengths, **kw))
+            extra = (f" device_ms={dev['ms']:.4f} plain_device_ms={dev['plain_ms']:.4f} "
+                     f"sdpa_device_ms={dev['library_ms']:.4f} host_us_per_call={host_us:.1f}")
+        log(f"flash T={t} lengths={lens} chunk={chunk}/{left} D={d}: max_abs_err={err:.3e} "
             f"ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={4 * pairs * d / ms / 1e9:.1f}{extra}")
         if not ok:
-            fail(f"flash attention disagrees with its plain version at T={t} chunk={chunk}")
-        if first is None:
-            first = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms)
+            fail(f"flash attention disagrees with its plain version at T={t} chunk={chunk} D={d}")
+        if dev and chunk == 0 and dev["library_ms"] <= dev["ms"]:
+            fail(f"flash attention is not faster than SDPA at T={t}")
+        if first is None:  # T=512, the 512-frame bucket: device times
+            first = dict(bound_ms=bound_ms, bound_by=bound_by, **dev)
+        del q, k, v, qt, kt, vt, keep, out
+    # the top mel bucket: times only (the plain version's scores do not fit)
+    for t, lens in ((15000, [15000, 13000]), (15512, [15512, 15000])):
+        q, k, v = (torch.randn(b, t, h, 64, device="cuda", generator=g) for _ in range(3))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125), 5, warmup=1)
+        keep = key_keep_mask(lengths, t, 0, -1)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        lib_ms = cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=0.125), 2,
+            warmup=1)
+        pairs = t * sum(lens) * h  # every row sees its batch's valid keys
+        bound_ms, bound_by = bound(4 * b * t * h * 64 * 4, 4 * pairs * 64, PEAK_BF16_FLOPS)
+        log(f"flash T={t} lengths={lens} (top bucket, times only): ms={ms:.4f} "
+            f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+            f"tflops={4 * pairs * 64 / ms / 1e9:.1f}")
+        del q, k, v, qt, kt, vt, keep
+    torch.cuda.empty_cache()
     return dict(max_abs_err=worst, **first)
 
 
@@ -186,9 +314,14 @@ def phase_flash_stock():
     )
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    b, h, d = 2, 8, 64
+    h = 8
     worst, main = 0.0, None
-    for t, lens in ((2048, [2048, 1700]), (2560, [2560, 2148]), (4096, [4096, 3001])):
+    # the long-form shapes, T % 128 == 64 with lengths straddling tile edges,
+    # and D = 128
+    cases = ((2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (4096, [4096, 3001], 64),
+             (2112, [1, 63, 65, 2111], 64), (2048, [2048, 1700], 128))
+    for t, lens, d in cases:
+        b = len(lens)
         q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         scale = d ** -0.5
@@ -205,27 +338,31 @@ def phase_flash_stock():
         lib_ms = cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=scale), 50
         )
-        banded_ms = cuda_time_ms(
-            lambda: banded_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                lengths, chunk=128, left=2, right=2), 50
-        )
-        pairs = sum(n * n + (t - n) * (t - n) for n in lens) * h  # visible (query, key) pairs
+        banded_ms = float("nan")  # banded attention takes multiples of its 128 chunk
+        if t % 128 == 0:
+            banded_ms = cuda_time_ms(
+                lambda: banded_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                    lengths, chunk=128, left=2, right=2), 50
+            )
+        host_us = host_us_per_call(lambda: flash_stock(q, k, v, lengths, scale=scale), 200)
+        pairs = _visible_pairs(lens, t, h)
         bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
-        log(f"flash_stock T={t} lengths={lens}: max_abs_err={err:.3e} ok={ok} ms={ms:.4f} "
+        log(f"flash_stock T={t} lengths={lens} D={d}: max_abs_err={err:.3e} ok={ok} ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} banded_ms={banded_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={4 * pairs * d / ms / 1e9:.1f}")
+            f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={4 * pairs * d / ms / 1e9:.1f} "
+            f"host_us_per_call={host_us:.1f}")
         if not ok:
-            fail(f"flash_stock disagrees with its plain version at T={t}")
-        if t == 4096:  # the shape of the long-form request at 4096 frames
+            fail(f"flash_stock disagrees with its plain version at T={t} D={d}")
+        if (t, d) == (4096, 64):  # the shape of the long-form request at 4096 frames
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                         library_ms=lib_ms)
     # exact against banded further up the long-form range, for the banded
     # gate's threshold (times only: these lengths are past the plain version's
     # memory, and the kernel is held to it above)
     for t in (8192, 12288, 15360):
-        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
+        q, k, v = (torch.randn(2, t, h, 64, device="cuda", generator=g) for _ in range(3))
         lengths = torch.tensor([t, t - 1000], dtype=torch.int32, device="cuda")
-        ms = cuda_time_ms(lambda: flash_stock(q, k, v, lengths, scale=d ** -0.5), 10)
+        ms = cuda_time_ms(lambda: flash_stock(q, k, v, lengths, scale=64 ** -0.5), 10)
         banded_ms = cuda_time_ms(
             lambda: banded_sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                 lengths, chunk=128, left=2, right=2), 10
@@ -584,6 +721,10 @@ def phase_main_path(synth):
             prompt_feat=rng.standard_normal((100, 80)).astype(np.float32),
             prompt_h=rng.standard_normal((100, 80)).astype(np.float32),
         )),
+        # about 13000 frames: past 12288, so neither long-form gate applies
+        # (15000 is no multiple of 128 or 512) and kernel 1 runs at T = 15000
+        ("yue@15000 (top bucket, ~13000 frames)", 15000,
+         dict(yue, length_scale=scale_for(synth, 13000, **yue))),
     ]
     results = {}
     for label, bucket, kw in runs:
@@ -737,6 +878,7 @@ def main():
     synth = Synthesizer(cfg, params_tts, params_hift, device="cuda")
     log(f"full-width Synthesizer (random weights, seeds 0/1) ready in {time.perf_counter() - t:.1f} s")
 
+    warm_card()
     flash = phase_flash()
     stock = phase_flash_stock()
     bwd = phase_flash_stock_bwd()

@@ -1,19 +1,14 @@
 // Shared pieces of the stock-flash kernels (forward and backward): the
-// tensor-core products of mma.sync, their fragment loads, and cp.async.
+// tf32 tensor-core products of mma.sync and their fragment loads (kernels 4
+// and 5), bf16 packing, and cp.async.
 //
-// Fragment layouts (g = lane / 4, tg = lane % 4):
-//   m16n8k16 bf16 (kernel 3)
-//     A (16x16, row): a0 = A[g][2tg..2tg+1], a1 = A[g+8][2tg..], a2 = A[g][2tg+8..],
-//                     a3 = A[g+8][2tg+8..]
-//     B (16x8, col):  b0 = B[2tg..2tg+1][g], b1 = B[2tg+8..2tg+9][g]
-//   m16n8k8 tf32 (kernels 4 and 5)
-//     A (16x8, row):  a0 = A[g][tg], a1 = A[g+8][tg], a2 = A[g][tg+4], a3 = A[g+8][tg+4]
-//     B (8x8, col):   b0 = B[tg][g], b1 = B[tg+4][g]
-//   C (16x8) of both: c0, c1 = C[g][2tg..2tg+1], c2, c3 = C[g+8][2tg..2tg+1]
-// So the C fragments of two neighbouring 8-column tiles are the bf16 A
-// fragment of one 16-deep k-step, and one C fragment is the tf32 A fragment
-// of an 8-deep k-step whose k order is permuted (slot tg holds column 2tg,
-// slot tg + 4 column 2tg + 1; the B operand reads its rows in that order).
+// Fragment layouts of m16n8k8 tf32 (g = lane / 4, tg = lane % 4):
+//   A (16x8, row):  a0 = A[g][tg], a1 = A[g+8][tg], a2 = A[g][tg+4], a3 = A[g+8][tg+4]
+//   B (8x8, col):   b0 = B[tg][g], b1 = B[tg+4][g]
+//   C (16x8):       c0, c1 = C[g][2tg..2tg+1], c2, c3 = C[g+8][2tg..2tg+1]
+// So one C fragment is the tf32 A fragment of an 8-deep k-step whose k
+// order is permuted (slot tg holds column 2tg, slot tg + 4 column 2tg + 1;
+// the B operand reads its rows in that order).
 
 #pragma once
 
@@ -34,16 +29,6 @@ struct Strides {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// c += a . b for one 16x8 tile, a 16x16 (row), b 16x8 (col), bf16 -> f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // f32 -> tf32 (10 mantissa bits), rounded to nearest, as a 32-bit pattern

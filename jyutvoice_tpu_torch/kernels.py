@@ -35,7 +35,7 @@ KERNEL_NAMES = ("flash_attention", "resblock_stage", "flash_stock",
                 "flash_stock_bwd_dkv", "flash_stock_bwd_dq")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
@@ -57,12 +57,20 @@ def _nvcc() -> str:
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
-def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+def _source_bytes(path: str, seen: set) -> bytes:
+    """A source and, recursively, the local headers it includes."""
+    with open(path, "rb") as f:
         src = f.read()
     for header in _LOCAL_INCLUDE.findall(src):
-        with open(os.path.join(CSRC, header.decode()), "rb") as f:
-            src += f.read()
+        name = header.decode()
+        if name not in seen:
+            seen.add(name)
+            src += _source_bytes(os.path.join(CSRC, name), seen)
+    return src
+
+
+def _lib_path(name: str) -> str:
+    src = _source_bytes(os.path.join(CSRC, f"{name}.cu"), set())
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
 
@@ -91,6 +99,8 @@ def _finish_build(name: str, started) -> None:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    with open(out[:-3] + ".log", "w") as f:  # ptxas -v: registers, spills, shared memory
+        f.write(log)
 
 
 def build_all() -> None:
@@ -115,6 +125,43 @@ def load(name: str) -> ctypes.CDLL:
             _finish_build(name, _start_build(name))
             lib = _LIBS.setdefault(name, ctypes.CDLL(_lib_path(name)))
     return lib
+
+
+def ptxas_facts(name: str) -> Dict[str, str]:
+    """Per compiled kernel function of one built source: 'N registers, S B
+    spill stores, L B spill loads', from the ptxas -v lines of its build
+    log (saved beside the library)."""
+    with open(_lib_path(name)[:-3] + ".log") as f:
+        log = f.read()
+    facts, func = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            func = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and func:
+            facts[func] = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            facts[func] = f"{m.group(1)} registers, " + facts.get(func, "")
+    return facts
+
+
+def sass_opcode_count(name: str, opcode: str) -> Dict[str, int]:
+    """Per kernel function of one built source, how many SASS instructions
+    start with `opcode` (e.g. "HGMMA"), from cuobjdump -sass."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool if os.path.exists(tool) else "cuobjdump", "-sass",
+                          _lib_path(name)], capture_output=True, text=True, check=True).stdout
+    counts, func = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = 0
+        elif func and re.search(r"\*/\s+" + opcode + r"\b", line):
+            counts[func] += 1
+    return counts
 
 
 def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:

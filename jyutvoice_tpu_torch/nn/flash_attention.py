@@ -6,13 +6,15 @@ Pallas kernel `jyutvoice_tpu/nn/pallas/attention.py::flash_attention`
 computes, with its rounding points: q is scaled in f32 and rounded to bf16,
 k and v are rounded to bf16, the probabilities are rounded to bf16 before
 P.V, and everything accumulates in f32. Query rows whose keys are all
-masked are not meaningful (the caller masks them downstream).
+masked are not meaningful (the caller masks them downstream): the kernel
+writes 0 there, the plain version the mean of v.
 
 Layout: q, k, v are (B, T, H, D), last dim contiguous, any other strides (so
 views of (B, T, H*D) projections go in without a copy); the
 output is a contiguous (B, T, H, D), i.e. merged heads. lengths (B,) are
-the valid key lengths. On the main path the kernel bound is memory traffic;
-the source's header says how the design treats it.
+the valid key lengths. At the short path's T the kernel is bound by memory
+traffic (and in practice by latency and the host), in the top mel bucket
+by operations; the source's header says how the design treats both.
 """
 
 from __future__ import annotations

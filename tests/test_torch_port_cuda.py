@@ -30,10 +30,20 @@ def cuda():
     "t,lengths,chunk,left,d",
     [(256, [256, 200], 0, -1, 64), (576, [576, 333], 0, -1, 64),
      (640, [640, 600], 50, -1, 64), (512, [400, 512], 100, 2, 64),
-     (300, [300, 77], 0, -1, 128)],
+     (300, [300, 77], 0, -1, 128),
+     # ragged T (a 64-frame prompt on a 1536 bucket is not ragged; 1000 is)
+     (1000, [1000, 650], 0, -1, 64),
+     # rows whose key range is empty under a chunk band, and a zero length
+     (200, [0, 120], 40, 1, 64),
+     # grids wide enough for the 128- and 192-row block configurations
+     (4160, [4160, 3001], 0, -1, 64), (4160, [4160, 3001], 0, -1, 128)],
 )
 def test_flash_kernel_matches_plain(cuda, t, lengths, chunk, left, d):
-    from jyutvoice_tpu_torch.nn.flash_attention import flash_attention, flash_attention_plain
+    from jyutvoice_tpu_torch.nn.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        key_keep_mask,
+    )
 
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(len(lengths), t, 4, d, device=cuda, generator=g) for _ in range(3))
@@ -43,6 +53,10 @@ def test_flash_kernel_matches_plain(cuda, t, lengths, chunk, left, d):
     ref = flash_attention_plain(q, k, v, lens, **kw)
     for i, n in enumerate(lengths):
         torch.testing.assert_close(out[i, :n], ref[i, :n], atol=5e-3, rtol=2e-2)
+    # a row that sees no key comes out 0
+    keep = key_keep_mask(lens, t, chunk, left).expand(-1, -1, t, -1)  # (B, 1, T, T)
+    empty = ~keep[:, 0].any(dim=-1)  # (B, T)
+    assert torch.all(out[empty] == 0)
 
 
 @pytest.mark.parametrize("c,t,b", [(128, 1000, 1), (64, 1537, 2), (16, 701, 1)])
@@ -71,7 +85,11 @@ def test_resblock_stage_kernel_matches_plain(cuda, c, t, b):
 @pytest.mark.parametrize(
     "t,lengths,d",
     [(2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (4096, [4096, 3001], 64),
-     (512, [1, 512], 64), (640, [0, 333], 64), (1024, [700, 1024], 128)],
+     (512, [1, 512], 64), (640, [0, 333], 64), (1024, [700, 1024], 128),
+     # T % 128 == 64 (the last block's second or third warpgroup sits out),
+     # lengths straddling the 64-key tile edges
+     (2112, [1, 2111], 64), (2112, [63, 65], 64), (960, [960, 700], 64),
+     (1088, [1088, 640], 64), (2112, [2112, 1000], 128)],
 )
 def test_flash_stock_kernel_matches_plain(cuda, t, lengths, d):
     from jyutvoice_tpu_torch.nn.flash_stock import flash_stock, flash_stock_plain
@@ -85,6 +103,23 @@ def test_flash_stock_kernel_matches_plain(cuda, t, lengths, d):
     out = flash_stock(q, k, v, lens, scale=d ** -0.5)
     ref = flash_stock_plain(q, k, v, lens, scale=d ** -0.5)
     torch.testing.assert_close(out, ref, atol=5e-3, rtol=1e-2)
+
+
+def test_flash_stock_residuals_match_plain(cuda):
+    from jyutvoice_tpu_torch.nn.flash_stock import flash_stock, flash_stock_plain
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    t, lengths, d = 2112, [1, 63, 65, 2111], 64
+    q, k, v = _qkv_views(g, len(lengths), t, 8, d, cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    o, m, l = flash_stock(q, k, v, lens, scale=d ** -0.5, residuals=True)
+    o_ref, m_ref, l_ref = flash_stock_plain(q, k, v, lens, scale=d ** -0.5, residuals=True)
+    assert m.shape == l.shape == (len(lengths), 8, t) and m.is_contiguous() and l.is_contiguous()
+    torch.testing.assert_close(o, o_ref, atol=5e-3, rtol=1e-2)
+    torch.testing.assert_close(m, m_ref, atol=5e-3, rtol=1e-2)
+    # l scales with the row max, which the bf16 products move: compare the
+    # log-sum-exp m + log l
+    torch.testing.assert_close(m + torch.log(l), m_ref + torch.log(l_ref), atol=5e-3, rtol=1e-2)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
