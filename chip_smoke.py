@@ -12,14 +12,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      must have them);
   3. kernel 1 (flash attention) against its plain version on the valid rows
      at the estimator's shapes (T = 512, 576, 640, chunk rules 50/-1 and
-     100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128), with
+     100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128, ragged
+     T = 4100, and the short path's other mel buckets 128-2048), with
      CUDA-event times (median of 3 loops, after warming the card) of the
-     kernel, the plain version and torch's SDPA as a yardstick; device-only
-     times (CUDA graph replay: back to back, these launches are bound by the
-     host) and the wrapper's host cost per call at T = 512-640, and the
-     kernel line's kernel 1 times are those device times at T = 512;
-     then kernel 1 and SDPA alone at T = 15000 and 15512 (the top mel
-     bucket) beside the bound;
+     kernel, the plain version and torch's SDPA as a yardstick; at
+     T <= 2048 also device-only times (CUDA graph replay: back to back, these
+     launches are bound by the host), printed and put in the kernel line as
+     device_ms, plain_device_ms and library_device_ms beside the event
+     times, and the wrapper's host cost per call; then at T = 15000 and
+     15512 (the top mel bucket) two heads against the plain version and
+     kernel 1 and SDPA timed alone beside the bound;
   4. kernel 3 (stock flash, segment ids) against its plain version on every
      row at the long-form shapes (T = 2048, 2560, 4096), at T = 2112
      (T % 128 == 64) with lengths 1, 63, 65, 2111, and at D = 128, with the
@@ -110,18 +112,26 @@ def cuda_time_ms(fn, iters, warmup=3, loops=3):
     return statistics.median(times)
 
 
+_CAPTURE_STREAM = []
+
+
 def graph_time_ms(fn, launches=20, loops=3):
     """Device ms per call without the host: `launches` calls captured in one
-    CUDA graph, replayed and timed as in cuda_time_ms."""
+    CUDA graph, replayed and timed as in cuda_time_ms. Every capture uses one
+    side stream: cuBLAS keeps a workspace allocated for each stream it has
+    run on, which a new stream per call would add to the later phases'
+    device memory."""
     import torch
 
-    side = torch.cuda.Stream()
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    side = _CAPTURE_STREAM[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(launches):
             fn()
     ms = cuda_time_ms(graph.replay, 10, loops=loops) / launches
@@ -218,10 +228,11 @@ def phase_build():
 
 def phase_flash():
     """Kernel 1 against its plain version on the valid rows at the short
-    path's shapes, ragged T (a 64-frame prompt), T=4160 and D=128, with
-    steady CUDA-event times beside SDPA with the same mask; device-only
-    (CUDA graph) times and the wrapper's host cost at T=512-640; then
-    kernel 1 alone beside SDPA and its bound in the top mel bucket."""
+    path's shapes, ragged T (a 64-frame prompt, T=4100), T=4160 and D=128,
+    with steady CUDA-event times beside SDPA with the same mask; device-only
+    (CUDA graph) times and the wrapper's host cost at T <= 2048; then in the
+    top mel bucket two heads against the plain version, and kernel 1 alone
+    beside SDPA and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -236,7 +247,11 @@ def phase_flash():
     cases = [(512, [512, 389], 0, -1, 64), (576, [576, 333], 0, -1, 64),
              (640, [640, 501], 0, -1, 64), (640, [640, 600], 50, -1, 64),
              (512, [400, 512], 100, 2, 64), (1600, [1600, 1100], 0, -1, 64),
-             (4160, [4160, 3001], 0, -1, 64), (640, [640, 501], 0, -1, 128)]
+             (4160, [4160, 3001], 0, -1, 64), (640, [640, 501], 0, -1, 128),
+             # ragged T where the 192-row blocks are picked (4100 % 192 = 68)
+             (4100, [4100, 3001], 0, -1, 64)]
+    # the other mel buckets of the short path
+    cases += [(t, [t, t * 3 // 4], 0, -1, 64) for t in (128, 256, 384, 768, 1024, 1536, 2048)]
     worst, first = 0.0, None
     for t, lens, chunk, left, d in cases:
         q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
@@ -261,31 +276,53 @@ def phase_flash():
         lib_ms = cuda_time_ms(sdpa, 200 if short else 20)
         pairs = int(keep.expand(-1, -1, t, -1).sum()) * h  # visible (query, key) pairs
         bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
-        extra, dev = "", None
-        if short and d == 64:
+        extra, dev = "", {}
+        if t <= 2048 and d == 64:
             # back to back, these launches are bound by the host (the
             # wrapper's cost per call); CUDA-graph replay gives device times
-            dev = dict(ms=graph_time_ms(lambda: flash_attention(q, k, v, lengths, **kw)),
-                       plain_ms=graph_time_ms(
+            dev = dict(device_ms=graph_time_ms(lambda: flash_attention(q, k, v, lengths, **kw)),
+                       plain_device_ms=graph_time_ms(
                            lambda: flash_attention_plain(q, k, v, lengths, **kw)),
-                       library_ms=graph_time_ms(sdpa))
+                       library_device_ms=graph_time_ms(sdpa))
             host_us = host_us_per_call(lambda: flash_attention(q, k, v, lengths, **kw))
-            extra = (f" device_ms={dev['ms']:.4f} plain_device_ms={dev['plain_ms']:.4f} "
-                     f"sdpa_device_ms={dev['library_ms']:.4f} host_us_per_call={host_us:.1f}")
+            extra = (f" device_ms={dev['device_ms']:.4f} "
+                     f"plain_device_ms={dev['plain_device_ms']:.4f} "
+                     f"sdpa_device_ms={dev['library_device_ms']:.4f} "
+                     f"host_us_per_call={host_us:.1f}")
         log(f"flash T={t} lengths={lens} chunk={chunk}/{left} D={d}: max_abs_err={err:.3e} "
             f"ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={4 * pairs * d / ms / 1e9:.1f}{extra}")
         if not ok:
             fail(f"flash attention disagrees with its plain version at T={t} chunk={chunk} D={d}")
-        if dev and chunk == 0 and dev["library_ms"] <= dev["ms"]:
+        if t in (512, 576, 640) and chunk == 0 and lib_ms <= ms:
             fail(f"flash attention is not faster than SDPA at T={t}")
-        if first is None:  # T=512, the 512-frame bucket: device times
-            first = dict(bound_ms=bound_ms, bound_by=bound_by, **dev)
+        if first is None:  # T=512, the 512-frame bucket
+            first = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, **dev)
         del q, k, v, qt, kt, vt, keep, out
-    # the top mel bucket: times only (the plain version's scores do not fit)
+    # the top mel bucket: the plain version's scores of all heads do not fit,
+    # so two heads are held to it (ragged T: the last key tile has 24 keys;
+    # at 15000 the last 192-row block has 24 rows, one consumer active), and
+    # the kernel is timed alone beside SDPA
     for t, lens in ((15000, [15000, 13000]), (15512, [15512, 15000])):
         q, k, v = (torch.randn(b, t, h, 64, device="cuda", generator=g) for _ in range(3))
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = flash_attention(q, k, v, lengths, scale=0.125)
+        err, ok = 0.0, True
+        for hd in (0, h - 1):
+            one = slice(hd, hd + 1)
+            ref = flash_attention_plain(q[:, :, one], k[:, :, one], v[:, :, one], lengths,
+                                        scale=0.125)
+            for i, n in enumerate(lens):
+                err = max(err, float((out[i, :n, one] - ref[i, :n]).abs().max()))
+                ok &= within(out[i, :n, one], ref[i, :n], ATTN_TOL)
+            del ref
+            torch.cuda.empty_cache()
+        worst = max(worst, err)
+        log(f"flash T={t} lengths={lens} heads 0 and {h - 1}: max_abs_err={err:.3e} ok={ok}")
+        if not ok:
+            fail(f"flash attention disagrees with its plain version at T={t}")
+        del out
         ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125), 5, warmup=1)
         keep = key_keep_mask(lengths, t, 0, -1)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))

@@ -26,32 +26,19 @@
 // The design is the shared Hopper main loop of `flash_fwd_sm90.cuh`
 // (wgmma with scores and accumulator in registers, a producer warpgroup
 // keeping k/v tiles in flight and rounding them once into swizzled bf16
-// tiles), with a tile configuration chosen here by the grid it gives: 64
-// query rows per block (one consumer warpgroup) while 128-row blocks would
-// not fill the card twice, so short requests get twice the blocks; 128 rows
-// (two consumer warpgroups sharing each staged tile, half the L2 traffic)
-// past that. The shared-memory attribute is set once per configuration.
+// tiles), with 64, 128 or 192 query rows per block (1-3 consumer
+// warpgroups sharing each staged tile) chosen for the grid by the header's
+// `pick_consumers`, the same rule as kernel 3's: one consumer up to
+// T = 512, where that gives twice the blocks and the grid is still one
+// wave, two or three past it. The shared-memory attribute is set once per
+// configuration.
 
 #include "hopper.cuh"
 #include "flash_fwd_sm90.cuh"
 
-namespace {
-
+using jv::fwd::launch_picked;
 using jv::fwd::Params;
 using jv::fwd::Rule;
-
-template <int D>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int NS = D == 64 ? 4 : 2;  // f32 staging slots
-  const int nc = jv::fwd::pick_consumers(p.T, B * p.H, jv::fwd::num_sms(), D == 64 ? 3 : 2, true);
-  if constexpr (D == 64) {
-    if (nc == 3) return jv::fwd::launch<D, 3, NS, Rule::KeyBand, false>(p, B, stream);
-  }
-  if (nc == 2) return jv::fwd::launch<D, 2, NS, Rule::KeyBand, false>(p, B, stream);
-  return jv::fwd::launch<D, 1, NS, Rule::KeyBand, false>(p, B, stream);
-}
-
-}  // namespace
 
 extern "C" int jv_flash_attention_fwd(
     const float* q, const float* k, const float* v, float* o, const int* lengths,
@@ -63,7 +50,7 @@ extern "C" int jv_flash_attention_fwd(
            {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
            scale, jv::LOG2E, chunk, left};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(p, B, st);
-  if (D == 128) return (int)launch<128>(p, B, st);
+  if (D == 64) return (int)launch_picked<64, Rule::KeyBand, false>(p, B, st);
+  if (D == 128) return (int)launch_picked<128, Rule::KeyBand, false>(p, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -461,21 +461,28 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Consumer warpgroups per block (64 query rows each) for a grid: the count
-// of the fewest full waves of blocks, weighed by the time a row costs in
-// each configuration on the H100 (3 warpgroups share each staged tile three
-// ways and came out 0.78x the per-row time of 2 in kernel 3 at T = 4096;
-// 1 warpgroup is taken only where wide blocks would not fill the card twice,
-// so short requests get the most blocks). max_nc caps it (3 needs D = 64:
-// at D = 128 its consumers have too few registers).
-inline int pick_consumers(int T, int BH, int sms, int max_nc, bool allow_one) {
-  auto waves = [&](int nc) {
+// Consumer warpgroups per block (64 query rows each) for a grid, the same
+// rule for both kernels: the count whose grid takes the least estimated
+// time, that is its waves of blocks (one block per SM) times the time a
+// block of that many consumers takes per key tile. kTileCost holds those
+// times relative to each other, fitted to runs on the H100 with the count
+// forced to 1, 2 and 3 (per wave, 1 consumer took 0.73-0.79x the time of 2
+// and 3 consumers 1.17-1.27x). With them the rule picks the fastest forced
+// count at every shape measured (T = 128-15512, both kernels). max_nc caps
+// it (3 needs D = 64: at D = 128 its consumers have too few registers).
+inline int pick_consumers(int T, int BH, int sms, int max_nc) {
+  constexpr int kTileCost[4] = {0, 14, 18, 22};
+  int best = 1;
+  long long best_cost = -1;
+  for (int nc = 1; nc <= max_nc; ++nc) {
     const long long blocks = (long long)((T + nc * WG_ROWS - 1) / (nc * WG_ROWS)) * BH;
-    return (blocks + sms - 1) / sms;
-  };
-  if (allow_one && (long long)((T + 127) / 128) * BH < 2LL * sms) return 1;
-  if (max_nc >= 3 && waves(3) * 3 * 7 < waves(2) * 2 * 9) return 3;
-  return 2;
+    const long long cost = (blocks + sms - 1) / sms * kTileCost[nc];
+    if (best_cost < 0 || cost < best_cost) {
+      best = nc;
+      best_cost = cost;
+    }
+  }
+  return best;
 }
 
 inline int num_sms() {
@@ -486,6 +493,20 @@ inline int num_sms() {
     return sms;
   }();
   return n;
+}
+
+// launches the configuration pick_consumers chooses for this grid; the f32
+// staging ring holds 4 tiles at D = 64 and 2 at D = 128 (shared memory:
+// 177 / 225 KB)
+template <int D, Rule R, bool kResiduals>
+cudaError_t launch_picked(const Params& p, int B, cudaStream_t stream) {
+  constexpr int NS = D == 64 ? 4 : 2;
+  const int nc = pick_consumers(p.T, B * p.H, num_sms(), D == 64 ? 3 : 2);
+  if constexpr (D == 64) {
+    if (nc == 3) return launch<D, 3, NS, R, kResiduals>(p, B, stream);
+  }
+  if (nc == 2) return launch<D, 2, NS, R, kResiduals>(p, B, stream);
+  return launch<D, 1, NS, R, kResiduals>(p, B, stream);
 }
 
 }  // namespace fwd

@@ -30,11 +30,13 @@
 // traffic of 64-row blocks by 2-3x; a producer warpgroup keeps four f32
 // tiles in flight with cp.async and rounds each once into a swizzled bf16
 // tile, so the rounding happens in the kernel and no cast pass goes through
-// device memory. The entry point picks two or three consumers by the waves
-// of blocks each gives (`pick_consumers`). A block walks only the key tiles
-// its rows can see (valid rows stop at the length, padded rows start there)
-// and each warpgroup computes only its own rows' tiles. Where T is not a
-// multiple of the block's rows, the last block's spare warpgroups sit out.
+// device memory. The header's `pick_consumers` chooses 1-3 consumers by the
+// waves of blocks each gives, the same rule as kernel 1's; at the long-form
+// shapes (B * H = 16, T >= 2048) that is two or three. A block walks only
+// the key tiles its rows can see (valid rows stop at the length, padded
+// rows start there) and each warpgroup computes only its own rows' tiles.
+// Where T is not a multiple of the block's rows, the last block's spare
+// warpgroups sit out.
 //
 // For training, the launch also writes the backward's residuals (the f32
 // row max m, natural log, and row sum l of the scaled scores, (B, H, T), as
@@ -44,22 +46,9 @@
 #include "hopper.cuh"
 #include "flash_fwd_sm90.cuh"
 
-namespace {
-
+using jv::fwd::launch_picked;
 using jv::fwd::Params;
 using jv::fwd::Rule;
-
-template <int D, bool kResiduals>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr int NS = D == 64 ? 4 : 2;  // f32 staging slots (shared memory: 177 / 225 KB)
-  const int nc = jv::fwd::pick_consumers(p.T, B * p.H, jv::fwd::num_sms(), D == 64 ? 3 : 2, false);
-  if constexpr (D == 64) {
-    if (nc == 3) return jv::fwd::launch<D, 3, NS, Rule::Segments, kResiduals>(p, B, stream);
-  }
-  return jv::fwd::launch<D, 2, NS, Rule::Segments, kResiduals>(p, B, stream);
-}
-
-}  // namespace
 
 // m_out and l_out ((B, H, T) f32) are written only when both are non-null,
 // by the residual instantiation; the inference launch does no extra work.
@@ -74,7 +63,11 @@ extern "C" int jv_flash_stock_fwd(
            {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
            1.f, scale * jv::LOG2E, 0, -1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)(res ? launch<64, true>(p, B, st) : launch<64, false>(p, B, st));
-  if (D == 128) return (int)(res ? launch<128, true>(p, B, st) : launch<128, false>(p, B, st));
+  if (D == 64)
+    return (int)(res ? launch_picked<64, Rule::Segments, true>(p, B, st)
+                     : launch_picked<64, Rule::Segments, false>(p, B, st));
+  if (D == 128)
+    return (int)(res ? launch_picked<128, Rule::Segments, true>(p, B, st)
+                     : launch_picked<128, Rule::Segments, false>(p, B, st));
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,10 @@ def cuda():
      # rows whose key range is empty under a chunk band, and a zero length
      (200, [0, 120], 40, 1, 64),
      # grids wide enough for the 128- and 192-row block configurations
-     (4160, [4160, 3001], 0, -1, 64), (4160, [4160, 3001], 0, -1, 128)],
+     (4160, [4160, 3001], 0, -1, 64), (4160, [4160, 3001], 0, -1, 128),
+     # ragged T on 192-row blocks: the last block's rows fill two consumers
+     # (4100 % 192 = 68) or one, with two sitting out (4050 % 192 = 18)
+     (4100, [4100, 3001], 0, -1, 64), (4050, [4050, 2999], 0, -1, 64)],
 )
 def test_flash_kernel_matches_plain(cuda, t, lengths, chunk, left, d):
     from jyutvoice_tpu_torch.nn.flash_attention import (
@@ -46,7 +49,8 @@ def test_flash_kernel_matches_plain(cuda, t, lengths, chunk, left, d):
     )
 
     g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(len(lengths), t, 4, d, device=cuda, generator=g) for _ in range(3))
+    # 8 heads, as the estimator's grids have
+    q, k, v = (torch.randn(len(lengths), t, 8, d, device=cuda, generator=g) for _ in range(3))
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     kw = dict(scale=d ** -0.5, chunk_size=chunk, num_left_chunks=left)
     out = flash_attention(q, k, v, lens, **kw)
