@@ -8,8 +8,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      versions; TF32 is turned off (parity with the f32 reference path);
   2. build: the four CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
      nvcc in parallel; per compiled kernel, ptxas's registers and spills and
-     the count of HGMMA (wgmma) instructions in its SASS (kernels 1 and 3
-     must have them);
+     the count of HGMMA (wgmma) instructions in its SASS (kernels 1 and 3,
+     and kernel 2 at C=128 and C=64, must have them), and ptxas's warnings;
   3. kernel 1 (flash attention) against its plain version on the valid rows
      at the estimator's shapes (T = 512, 576, 640, chunk rules 50/-1 and
      100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128, ragged
@@ -29,8 +29,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      and the banded attention the long-form gate takes instead, and the
      host cost per call; then kernel 3 and banded times alone at T = 8192,
      12288, 15360;
-  5. kernel 2 (HiFT ResBlock stage) against its plain version at
-     (C=128, T=20480) and (C=64, T=61441), batch 1 and 2;
+  5. kernel 2 (HiFT ResBlock stage, 3xTF32 on wgmma) against its plain
+     version on every row at the 512-frame bucket's stages (C=128, T=20480)
+     and (C=64, T=61441), batch 1 and 2, at the 15000-bucket request's
+     windowed pair (batch 7: C=128 at T=84480, C=64 at T=253441) and at T
+     no multiple of its tile, each with the kernel's and the plain
+     version's times, the 3xTF32 and f32 FFMA bounds and the recompute
+     factor;
   6. the main path: a full-width Synthesizer with seeded random weights
      (default JyutVoiceConfig) answers 6 requests: one at the 512-frame mel
      bucket twice (cold, then warm), raw Cantonese text, Mandarin, one
@@ -70,11 +75,12 @@ import time
 # H100 SXM datasheet peaks (NVIDIA), dense
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 
 ATTN_TOL = (5e-3, 2e-2)  # atol, rtol: bf16 products, f32 accumulation
 STOCK_TOL = (5e-3, 1e-2)  # the JAX package's bar for the stock flash kernel
-STAGE_TOL = (2e-5, 1e-4)  # f32 throughout
+STAGE_TOL = (2e-5, 1e-4)  # f32 accuracy (3xTF32 products, f32 sums)
 BWD_BAR = 1e-2  # kernels 4 and 5: max |err| / max |ref| per gradient (bf16 products)
 TRAIN_LOSS_RTOL = 1e-3  # card against CPU, one deterministic step
 TRAIN_GRAD_RTOL = 2e-2  # relative L2 norm of the trainable gradients
@@ -193,9 +199,13 @@ def phase_device():
 
 
 def _short_kernel_name(mangled):
-    """flash_fwd_sm90's template arguments spelled out; other names as they are."""
+    """flash_fwd_sm90's and resblock_stage_sm90's template arguments spelled
+    out; other names as they are."""
     import re
 
+    m = re.search(r"resblock_stage_sm90ILi(\d+)E", mangled)
+    if m:
+        return f"resblock_stage_sm90<C={m.group(1)}>"
     m = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELNS0_4RuleE(\d)ELb(\d)", mangled)
     if not m:
         return mangled
@@ -221,9 +231,16 @@ def phase_build():
         for func, facts in sorted(kernels.ptxas_facts(name).items()):
             log(f"  {name}: {_short_kernel_name(func)}: {facts}, HGMMA in SASS: {sass.get(func, 0)}")
         hgmma[name] = sass
+        for warning in kernels.ptxas_warnings(name):
+            log(f"  {name}: ptxas: {warning}")
     for name in ("flash_attention", "flash_stock"):
         if not hgmma[name] or not all(hgmma[name].values()):
             fail(f"csrc/{name}.cu has a kernel without HGMMA in its SASS: {hgmma[name]}")
+    # kernel 2: the instantiations of the main path's stages (C=128 and 64)
+    stage = {_short_kernel_name(f): n for f, n in hgmma["resblock_stage"].items()}
+    for c in (128, 64):
+        if not stage.get(f"resblock_stage_sm90<C={c}>"):
+            fail(f"csrc/resblock_stage.cu has no HGMMA in its C={c} kernel: {stage}")
 
 
 def phase_flash():
@@ -664,48 +681,69 @@ def phase_train_reference():
 
 
 def phase_stage(synth):
+    """Kernel 2 against its plain version on every row, with the vocoder's
+    stage weights: the 512-frame bucket's pair (C=128 at T=20480, C=64 at
+    T=61441) at batch 1 and 2, the 15000-bucket request's windowed pair
+    (batch 7: C=128 at T=84480, C=64 at T=253441) and ragged T; the kernel's
+    and the plain version's times, the 3xTF32 tensor-core and the f32 FFMA
+    bounds, and the kernel's recompute factor."""
     import torch
 
-    from jyutvoice_tpu_torch.nn.resblock_stage import (
-        pack_stage_weights,
-        resblock_stage,
-        resblock_stage_plain,
-    )
+    from jyutvoice_tpu_torch.nn import resblock_stage as rs
 
     cfg = synth.cfg.hift
     ks = tuple(cfg.resblock_kernel_sizes)
     dil = tuple(cfg.resblock_dilation_sizes[0])
     n = len(ks)
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst, pair = 0.0, None
-    # stages 1 and 2 of the vocoder at the 512-frame mel bucket
-    for stage, t in ((1, 20480), (2, 61441)):
-        w = pack_stage_weights(synth.hift.resblocks[stage * n : (stage + 1) * n], dil)
+    worst = 0.0
+    sums = {"512": {}, "windowed": {}}  # the B=1 512 pair and the B=7 windowed pair
+    cases = [("512", 1, 20480, 1), ("512", 2, 61441, 1), ("512", 1, 20480, 2),
+             ("512", 2, 61441, 2), ("windowed", 1, 84480, 7), ("windowed", 2, 253441, 7),
+             # T no multiple of the tile the wrapper picks
+             ("ragged", 1, 5001, 1), ("ragged", 2, 15003, 2)]
+    for label, stage, t, b in cases:
+        w = rs.pack_stage_weights(synth.hift.resblocks[stage * n : (stage + 1) * n], dil)
         c = synth.hift.resblocks[stage * n].convs1[0].weight.shape[0]
-        for b in (1, 2):
-            x = torch.randn(b, t, c, device="cuda", generator=g) * 0.5
-            kw = dict(kernel_sizes=ks, dilations=dil)
-            out = resblock_stage(x, w, **kw)
-            ref = resblock_stage_plain(x, w, **kw)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            ok = within(out, ref, STAGE_TOL)
-            worst = max(worst, err)
-            ms = cuda_time_ms(lambda: resblock_stage(x, w, **kw), 5, warmup=1)
-            plain_ms = cuda_time_ms(lambda: resblock_stage_plain(x, w, **kw), 5, warmup=1)
-            flops = b * t * c * c * 4 * len(dil) * sum(ks)  # 252 C^2 T at (3, 7, 11)
-            bound_ms, bound_by = bound(2 * x.numel() * 4 + w.numel() * 4, flops, PEAK_F32_FLOPS)
-            log(f"resblock_stage C={c} T={t} B={b}: max_abs_err={err:.3e} ok={ok} "
-                f"ms={ms:.3f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by})")
-            if not ok:
-                fail(f"resblock stage disagrees with its plain version at C={c} T={t} B={b}")
-            if b == 1:
-                # the main path's pair of launches: one C=128 and one C=64 stage
-                pair = pair or dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by=bound_by)
-                pair["ms"] += ms
-                pair["plain_ms"] += plain_ms
-                pair["bound_ms"] += bound_ms
-    return dict(max_abs_err=worst, library_ms=None, **pair)
+        prepared = rs.prepare_stage_weights(w, c, ks, dil)
+        x = torch.randn(b, t, c, device="cuda", generator=g) * 0.5
+        kw = dict(kernel_sizes=ks, dilations=dil)
+        out = rs.resblock_stage_prepared(x, prepared)
+        ref = rs.resblock_stage_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        ok = within(out, ref, STAGE_TOL)
+        worst = max(worst, err)
+        del out, ref
+        big = b == 7
+        ms = cuda_time_ms(lambda: rs.resblock_stage_prepared(x, prepared), 3 if big else 10,
+                          warmup=1)
+        plain_ms = cuda_time_ms(lambda: rs.resblock_stage_plain(x, w, **kw), 2 if big else 5,
+                                warmup=1)
+        flops = b * t * c * c * 4 * len(dil) * sum(ks)  # 252 C^2 T at (3, 7, 11), (1, 3, 5)
+        io_bytes = 2 * x.numel() * 4 + w.numel() * 4
+        bound_ms, bound_by = bound(io_bytes, 3 * flops, PEAK_TF32_FLOPS)  # 3 TF32 products
+        bound_f32_ms, _ = bound(io_bytes, flops, PEAK_F32_FLOPS)
+        tt = rs.launch_tile(t, b, c, ks, dil, x.device)
+        log(f"resblock_stage {label} C={c} T={t} B={b}: max_abs_err={err:.3e} ok={ok} "
+            f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} (3xTF32, {bound_by}) "
+            f"bound_f32_ms={bound_f32_ms:.4f} tile={tt} (T % tile = {t % tt}) "
+            f"recompute={rs.recompute_factor(t, b, tt, ks, dil):.3f} "
+            f"tflops={flops / ms / 1e9:.1f}")
+        if not ok:
+            fail(f"resblock stage disagrees with its plain version at C={c} T={t} B={b}")
+        if label in sums and b in (1, 7):
+            acc = sums[label]
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
+                             ("bound_f32_ms", bound_f32_ms)):
+                acc[key] = acc.get(key, 0.0) + val
+            acc["bound_by"] = bound_by
+        del x
+        torch.cuda.empty_cache()
+    main, win = sums["512"], sums["windowed"]
+    return dict(max_abs_err=worst, library_ms=None, **main,
+                windowed_ms=win["ms"], windowed_plain_ms=win["plain_ms"],
+                windowed_bound_ms=win["bound_ms"])
 
 
 def run_request(synth, label, expect_bucket=None, **kw):

@@ -1,7 +1,10 @@
-// Hopper (sm_90a) building blocks of the attention kernels: shared-memory
-// mbarriers with phase parity, the async-proxy fence, wgmma descriptors for
-// 128-byte-swizzled bf16 tiles, the m64nNk16 bf16 -> f32 wgmma with A in
-// registers, its fence / commit / wait, and setmaxnreg.
+// Hopper (sm_90a) building blocks of the attention kernels and of the
+// ResBlock stage: shared-memory mbarriers with phase parity (and the
+// transaction count of a bulk copy), the 1-D bulk copy (TMA without a tensor
+// map) from global to shared memory, the async-proxy fence, a named barrier,
+// wgmma descriptors for 128-byte-swizzled tiles, the m64nNk16 bf16 -> f32
+// and m64nNk8 tf32 -> f32 wgmma with A in registers, their fence / commit /
+// wait, and setmaxnreg.
 //
 // Tile layout (`sw128_offset`): a bf16 tile of R rows x C columns (C a
 // multiple of 64) is stored as C / 64 blocks of R rows x 128 bytes, block c
@@ -20,6 +23,15 @@
 // g + 8, columns 2tg+8..2tg+9 (rows within the warp's 16). So the
 // accumulator of columns 16kk..16kk+15, rounded to bf16 and packed in
 // pairs, is the A operand of k-step kk of the next product.
+//
+// tf32 (m64nNk8): one k-step is 8 values = 32 bytes of a 128-byte row, so a
+// K-major tf32 tile of N rows x 32 columns is the same swizzled image as a
+// bf16 one of N rows x 64 columns, and the descriptor of k-step kk starts
+// kk * 32 bytes into it. TF32 wgmma cannot transpose: B is always K-major.
+// The A register fragment of warp w holds a0 = row 16w + g, column tg;
+// a1 = row 16w + g + 8, column tg; a2, a3 = the same rows, column tg + 4,
+// each a tf32 in a 32-bit register (`to_tf32`). The accumulator fragment is
+// the one above.
 
 #pragma once
 
@@ -48,6 +60,31 @@ __device__ __forceinline__ void mbar_fence_init() {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrive and add `bytes` to the transaction count the current phase waits for
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// one bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory by the TMA unit; its completion counts
+// against `bar`'s transaction count
+__device__ __forceinline__ void bulk_copy_g2s(void* smem_dst, const void* gmem_src,
+                                              uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(smem_dst)),
+      "l"(gmem_src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a barrier among `count` threads (a multiple of 32) on barrier `id` (1-15;
+// 0 is __syncthreads')
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // wait until the phase with the given parity has completed
@@ -199,6 +236,84 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_m64n64k16_rs<kTransB>(d, a, desc_b, accumulate);
   else
     wgmma_m64n128k16_rs<kTransB>(d, a, desc_b, accumulate);
+}
+
+// ---- tf32 wgmma: d (64 x N) += a (64 x 8, registers) . b (8 x N, K-major
+// shared memory via desc_b); accumulate = 0 overwrites d ----------------------
+
+__device__ __forceinline__ void wgmma_m64n8k8_tf32_rs(float (&d)[4], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3"
+      "}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma_tf32_rs: N is 8, 16, 32 or 64");
+  if constexpr (N == 8)
+    wgmma_m64n8k8_tf32_rs(d, a, desc_b, accumulate);
+  else if constexpr (N == 16)
+    wgmma_m64n16k8_tf32_rs(d, a, desc_b, accumulate);
+  else if constexpr (N == 32)
+    wgmma_m64n32k8_tf32_rs(d, a, desc_b, accumulate);
+  else
+    wgmma_m64n64k8_tf32_rs(d, a, desc_b, accumulate);
 }
 
 }  // namespace jv

@@ -21,7 +21,7 @@ import re
 import subprocess
 import tempfile
 import threading
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -145,6 +145,13 @@ def ptxas_facts(name: str) -> Dict[str, str]:
         if m and func:
             facts[func] = f"{m.group(1)} registers, " + facts.get(func, "")
     return facts
+
+
+def ptxas_warnings(name: str) -> List[str]:
+    """The warnings of one built source's compile (e.g. wgmma instructions
+    that ptxas serialized), from its build log."""
+    with open(_lib_path(name)[:-3] + ".log") as f:
+        return [line.strip() for line in f if "warning" in line.lower()]
 
 
 def sass_opcode_count(name: str, opcode: str) -> Dict[str, int]:

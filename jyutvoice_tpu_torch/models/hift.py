@@ -20,7 +20,11 @@ from torch import nn
 
 from jyutvoice_tpu_torch.config import HiFTConfig
 from jyutvoice_tpu_torch.nn import core
-from jyutvoice_tpu_torch.nn.resblock_stage import pack_stage_weights, resblock_stage
+from jyutvoice_tpu_torch.nn.resblock_stage import (
+    pack_stage_weights,
+    prepare_stage_weights,
+    resblock_stage_prepared,
+)
 
 Tensor = torch.Tensor
 
@@ -239,19 +243,39 @@ class HiFT(nn.Module):
             for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
         )
         self.conv_post = core.Conv1d(base // (2 ** len(cfg.upsample_rates)), n_fft_src, 7)
+        self._prepared = {}  # stage -> (weights key, PreparedStage)
+
+    def prepared_stage(self, i: int):
+        """Stage i's ResBlock weights in kernel 2's layout, built at the first
+        call and again only after a weight of the stage was moved or changed
+        in place."""
+        cfg = self.cfg
+        n = len(cfg.resblock_kernel_sizes)
+        branches = self.resblocks[i * n : (i + 1) * n]
+        weights = [p for br in branches for p in br.parameters()]
+        try:
+            versions = tuple(p._version for p in weights)
+        except RuntimeError:  # inference tensors keep no version counter
+            versions = None
+        key = (tuple(p.data_ptr() for p in weights), versions)
+        cached = self._prepared.get(i)
+        if cached is None or cached[0] != key:
+            dil = tuple(cfg.resblock_dilation_sizes[0])
+            stage = prepare_stage_weights(
+                pack_stage_weights(branches, dil), branches[0].convs1[0].weight.shape[0],
+                cfg.resblock_kernel_sizes, dil,
+            )
+            cached = self._prepared[i] = (key, stage)
+        return cached[1]
 
     def stage_resblocks(self, i: int, x: Tensor) -> Tensor:
         """The mean of stage i's parallel ResBlocks: kernel 2 for C <= 128
         when the branches share one dilation schedule, else separate convs."""
         cfg = self.cfg
+        if x.shape[-1] <= 128 and len(set(cfg.resblock_dilation_sizes)) == 1:
+            return resblock_stage_prepared(x.contiguous(), self.prepared_stage(i))
         n = len(cfg.resblock_kernel_sizes)
         branches = self.resblocks[i * n : (i + 1) * n]
-        if x.shape[-1] <= 128 and len(set(cfg.resblock_dilation_sizes)) == 1:
-            dil = tuple(cfg.resblock_dilation_sizes[0])
-            return resblock_stage(
-                x.contiguous(), pack_stage_weights(branches, dil),
-                kernel_sizes=tuple(cfg.resblock_kernel_sizes), dilations=dil,
-            )
         xs = None
         for br in branches:
             out = br(x)

@@ -63,27 +63,77 @@ def test_flash_kernel_matches_plain(cuda, t, lengths, chunk, left, d):
     assert torch.all(out[empty] == 0)
 
 
-@pytest.mark.parametrize("c,t,b", [(128, 1000, 1), (64, 1537, 2), (16, 701, 1)])
-def test_resblock_stage_kernel_matches_plain(cuda, c, t, b):
-    from jyutvoice_tpu_torch.nn.resblock_stage import resblock_stage, resblock_stage_plain
-
-    ks, dil = (3, 7, 11), (1, 3, 5)
-    g = torch.Generator(device=cuda).manual_seed(1)
+def _stage_weights(g, c, ks, dil, w_scale=1.0):
+    """Flat JAX-layout weights of one stage: convs of unit gain times
+    w_scale, small biases, alphas in [0.5, 1.5)."""
     parts = []
     for k in ks:
         for _ in dil:
             for _ in range(2):
                 parts += [
-                    torch.randn(k * c * c, device=cuda, generator=g) / (k * c) ** 0.5,
-                    torch.randn(c, device=cuda, generator=g) * 0.1,
-                    torch.rand(c, device=cuda, generator=g) + 0.5,
+                    torch.randn(k * c * c, device=g.device, generator=g) * w_scale / (k * c) ** 0.5,
+                    torch.randn(c, device=g.device, generator=g) * 0.1,
+                    torch.rand(c, device=g.device, generator=g) + 0.5,
                 ]
-    w = torch.cat(parts)
+    return torch.cat(parts)
+
+
+FULL_DIL = (1, 3, 5)
+
+
+@pytest.mark.parametrize(
+    "c,t,b,w_scale,dil",
+    [(128, 1000, 1, 1.0, FULL_DIL), (64, 1537, 2, 1.0, FULL_DIL), (16, 701, 1, 1.0, FULL_DIL),
+     # C=128 over many tiles, T no multiple of any tile the wrapper picks
+     (128, 3001, 1, 1.0, FULL_DIL),
+     # a windowed-vocoder-like batch of 7 at C=64
+     (64, 4999, 7, 1.0, FULL_DIL),
+     # the other channel counts the kernel takes
+     (32, 999, 1, 1.0, FULL_DIL), (8, 333, 2, 1.0, FULL_DIL),
+     # weights x4: larger products through the 3xTF32 split, one step at the
+     # widest dilation (over three steps the x4 chain grows to |out| ~ 7e3,
+     # where the plain f32 version itself misses this bar against f64)
+     (128, 1000, 1, 4.0, (5,)), (64, 1537, 2, 4.0, (5,))],
+)
+def test_resblock_stage_kernel_matches_plain(cuda, c, t, b, w_scale, dil):
+    from jyutvoice_tpu_torch.nn.resblock_stage import resblock_stage, resblock_stage_plain
+
+    ks = (3, 7, 11)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    w = _stage_weights(g, c, ks, dil, w_scale)
     x = torch.randn(b, t, c, device=cuda, generator=g) * 0.5
     kw = dict(kernel_sizes=ks, dilations=dil)
     torch.testing.assert_close(
         resblock_stage(x, w, **kw), resblock_stage_plain(x, w, **kw), atol=2e-5, rtol=1e-4
     )
+
+
+def test_resblock_stage_prepared_weights_of_another_layout_raise(cuda):
+    import dataclasses
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn.resblock_stage import (
+        prepare_stage_weights,
+        resblock_stage_prepared,
+    )
+
+    ks, dil = (3, 7, 11), (1, 3, 5)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    stage = prepare_stage_weights(_stage_weights(g, 64, ks, dil), 64, ks, dil)
+    x = torch.zeros(1, 300, 64, device=cuda)
+    kernels.reset_launch_counts()
+    bad = [dataclasses.replace(stage, tiles=stage.tiles[:-32]),  # a chunk short
+           dataclasses.replace(stage, tiles=stage.tiles.view(-1, 32)),  # not flat
+           dataclasses.replace(stage, params=stage.params[:-1]),
+           dataclasses.replace(stage, kernel_sizes=(3, 7)),  # another stage's layout
+           dataclasses.replace(stage, channels=32)]
+    for wrong in bad:
+        with pytest.raises(ValueError, match="layout"):
+            resblock_stage_prepared(x, wrong)
+    with pytest.raises(ValueError, match="layout"):  # prepared for C=64, called at C=32
+        resblock_stage_prepared(torch.zeros(1, 300, 32, device=cuda), stage)
+    assert kernels.LAUNCHES["resblock_stage"] == 0
+    assert resblock_stage_prepared(x, stage).shape == x.shape
 
 
 @pytest.mark.parametrize(
