@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failure exits non-zero:
   2. build: the four CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
      nvcc in parallel; per compiled kernel, ptxas's registers and spills and
      the count of HGMMA (wgmma) instructions in its SASS (kernels 1 and 3,
-     and kernel 2 at C=128 and C=64, must have them), and ptxas's warnings;
+     kernel 2 at C=128 and C=64, and every dK/dV and dQ kernel of kernels 4
+     and 5 at D=64 and D=128 must have them), and ptxas's warnings;
   3. kernel 1 (flash attention) against its plain version on the valid rows
      at the estimator's shapes (T = 512, 576, 640, chunk rules 50/-1 and
      100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128, ragged
@@ -49,11 +50,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      15000-frame bucket with PCM16 (delegated, banded); then two long-form
      requests (exact with a prompt at 2560 frames, banded at 2048) against
      the same model on the CPU;
-  8. kernels 4 and 5 (the stock flash backward, dK/dV and dQ) against the
-     plain backward on every row at T = 2048, 2560, 4096 (D = 64) and one
-     D = 128 case, kernel 3's residuals against the plain forward's stats,
-     with the times of each kernel, the plain backward and SDPA's backward,
-     and kernel 3 timed with and without residuals;
+  8. kernels 4 and 5 (the stock flash backward, dK/dV and dQ, on tf32
+     wgmma) against the plain backward on every row, standalone and through
+     flash_stock_bwd with one shared preparation, and the preparation of
+     their operands against its plain version (tile images bit for bit), at
+     T = 2048, 2560, 4096 (D = 64), D = 128, and batch 16 at T = 512 (the
+     short training shape), kernel 3's residuals against the plain forward's
+     stats (not at batch 16), with the times of the preparation, each kernel,
+     the whole backward, the plain backward and SDPA's backward beside the
+     TF32 and bf16 bounds, ptxas's registers and spills at D = 128, and
+     kernel 3 timed with and without residuals;
   9. the training path: a full-width trainer (default JyutVoiceConfig,
      random weights, seed 0) takes 8 steps at batch 2 in the 2048-frame mel
      bucket (kernels 3, 4 and 5, 56 launches each per step), then 3 steps
@@ -81,7 +87,7 @@ PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 ATTN_TOL = (5e-3, 2e-2)  # atol, rtol: bf16 products, f32 accumulation
 STOCK_TOL = (5e-3, 1e-2)  # the JAX package's bar for the stock flash kernel
 STAGE_TOL = (2e-5, 1e-4)  # f32 accuracy (3xTF32 products, f32 sums)
-BWD_BAR = 1e-2  # kernels 4 and 5: max |err| / max |ref| per gradient (bf16 products)
+BWD_BAR = 1e-2  # kernels 4 and 5: max |err| / max |ref| per gradient (TF32 products)
 TRAIN_LOSS_RTOL = 1e-3  # card against CPU, one deterministic step
 TRAIN_GRAD_RTOL = 2e-2  # relative L2 norm of the trainable gradients
 
@@ -206,6 +212,14 @@ def _short_kernel_name(mangled):
     m = re.search(r"resblock_stage_sm90ILi(\d+)E", mangled)
     if m:
         return f"resblock_stage_sm90<C={m.group(1)}>"
+    m = re.search(r"flash_stock_bwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", mangled)
+    if m:
+        d, nc, ns, dkv = m.groups()
+        return (f"flash_stock_bwd_sm90<D={d}, consumers={nc}, stages={ns}, "
+                f"{'dk/dv' if dkv == '1' else 'dq'}>")
+    m = re.search(r"flash_stock_bwd_prep_kernelILi(\d+)E", mangled)
+    if m:
+        return f"flash_stock_bwd_prep<D={m.group(1)}>"
     m = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELNS0_4RuleE(\d)ELb(\d)", mangled)
     if not m:
         return mangled
@@ -241,6 +255,16 @@ def phase_build():
     for c in (128, 64):
         if not stage.get(f"resblock_stage_sm90<C={c}>"):
             fail(f"csrc/resblock_stage.cu has no HGMMA in its C={c} kernel: {stage}")
+    # kernels 4 and 5: every instantiation, at D=64 and D=128 (the
+    # preparation kernel moves data only)
+    bwd = {_short_kernel_name(f): n for f, n in hgmma["flash_stock_bwd"].items()
+           if "flash_stock_bwd_sm90" in f}
+    for d in (64, 128):
+        for which in ("dk/dv", "dq"):
+            mine = {f: n for f, n in bwd.items() if f"D={d}," in f and which in f}
+            if not mine or not all(mine.values()):
+                fail(f"csrc/flash_stock_bwd.cu: a {which} kernel at D={d} lacks HGMMA "
+                     f"in its SASS: {bwd}")
 
 
 def phase_flash():
@@ -431,20 +455,34 @@ def _visible_pairs(lens, t, h):
 
 
 def phase_flash_stock_bwd():
-    """Kernels 4 and 5 against the plain backward on every row, kernel 3's
-    residuals against the plain forward's stats, and times."""
+    """Kernels 4 and 5 against the plain backward on every row (standalone,
+    each preparing its own operands, and through flash_stock_bwd with one
+    shared preparation), the preparation against its plain version, kernel
+    3's residuals against the plain forward's stats, and times: the
+    preparation, each kernel on prepared operands, the whole backward, the
+    plain backward and SDPA's backward, beside the TF32 and bf16 bounds."""
     import torch
     import torch.nn.functional as F
 
+    from jyutvoice_tpu_torch import kernels
     from jyutvoice_tpu_torch.nn import flash_stock as fs
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    b, h = 2, 8
-    worst = {"dkv": 0.0, "dq": 0.0}
+    h = 8
+    spills = {_short_kernel_name(f): facts for f, facts in kernels.ptxas_facts(
+        "flash_stock_bwd").items() if "D=128" in _short_kernel_name(f)}
+    log(f"flash_stock_bwd at D=128 (ptxas): {spills}")
+    worst = {"dkv": 0.0, "dq": 0.0, "prep": 0.0}
     main = None
-    cases = ((2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (4096, [4096, 3001], 64),
-             (2048, [2048, 1700], 128))
-    for t, lens, d in cases:
+    # the long-form training shapes and D=128, then the short training
+    # shape (batch 16, mel 512): there kernels 4 and 5 are checked and timed,
+    # and kernel 3's forward only feeds them (its output misses its bar on
+    # 2 of 4.2M elements there: ROADMAP.md §3; phase 4 holds kernel 3)
+    cases = ((2048, [2048, 1700], 64, True), (2560, [2560, 2148], 64, True),
+             (4096, [4096, 3001], 64, True), (2048, [2048, 1700], 128, True),
+             (512, [512 - 4 * i for i in range(16)], 64, False))
+    for t, lens, d, check_forward in cases:
+        b = len(lens)
         # strided (B, T, H, D) views of one projection, as in the estimator
         qkv = torch.randn(b, t, 3 * h * d, device="cuda", generator=g)
         q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
@@ -454,33 +492,50 @@ def phase_flash_stock_bwd():
         o, m, l = fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True)
         o_ref, m_ref, l_ref = fs.flash_stock_plain(q, k, v, lengths, scale=scale, residuals=True)
         di = fs.flash_stock_di(o, do)
+        prep = fs.flash_stock_bwd_prepare(q, k, v, do, m, l)
+        prep_ref = fs.flash_stock_bwd_prepare_plain(q, k, v, do, m, l)
         dk, dv = fs.flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale)
         dq = fs.flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale)
+        shared = fs.flash_stock_bwd(q, k, v, o, do, m, l, lengths, scale=scale)
         dq_ref, dk_ref, dv_ref = fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths,
                                                           scale=scale)
         torch.cuda.synchronize()
         # the residuals: the row max, and the log-sum-exp m + log l (l alone
         # scales with the max, which bf16 products move)
-        res_ok = (within(o, o_ref, STOCK_TOL) and within(m, m_ref, STOCK_TOL)
-                  and within(m + torch.log(l), m_ref + torch.log(l_ref), STOCK_TOL))
+        res_ok = not check_forward or (
+            within(o, o_ref, STOCK_TOL) and within(m, m_ref, STOCK_TOL)
+            and within(m + torch.log(l), m_ref + torch.log(l_ref), STOCK_TOL))
+        # the preparation: tile images bit-equal, lse2 to float rounding
+        n_tiles = prep.numel() - b * h * t
+        lse_err = float((prep[n_tiles:] - prep_ref[n_tiles:]).abs().max())
+        prep_ok = torch.equal(prep[:n_tiles], prep_ref[:n_tiles]) and within(
+            prep[n_tiles:], prep_ref[n_tiles:], (1e-6, 1e-6))
         rel, err = {}, {}
-        for name, x, y in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-            err[name] = float((x - y).abs().max())
+        for name, x, xs, y in (("dq", dq, shared[0], dq_ref), ("dk", dk, shared[1], dk_ref),
+                               ("dv", dv, shared[2], dv_ref)):
+            err[name] = max(float((x - y).abs().max()), float((xs - y).abs().max()))
             rel[name] = err[name] / float(y.abs().max())
-        ok = res_ok and all(r <= BWD_BAR for r in rel.values())
+        ok = res_ok and prep_ok and all(r <= BWD_BAR for r in rel.values())
         worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
         worst["dq"] = max(worst["dq"], err["dq"])
+        worst["prep"] = max(worst["prep"], lse_err)
+        del prep_ref, shared
 
         fwd_ms = cuda_time_ms(lambda: fs.flash_stock(q, k, v, lengths, scale=scale), 30)
         res_ms = cuda_time_ms(
             lambda: fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True), 30)
-        dkv_ms = cuda_time_ms(
-            lambda: fs.flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale), 30)
-        dq_ms = cuda_time_ms(
-            lambda: fs.flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale), 30)
+        prep_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_prepare(q, k, v, do, m, l), 30)
+        dkv_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_dkv(
+            q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep), 30)
+        dq_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_dq(
+            q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep), 30)
+        bwd_ms = cuda_time_ms(
+            lambda: fs.flash_stock_bwd(q, k, v, o, do, m, l, lengths, scale=scale), 30)
         plain_ms = cuda_time_ms(
             lambda: fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths, scale=scale), 5,
             warmup=1)
+        plain_prep_ms = cuda_time_ms(
+            lambda: fs.flash_stock_bwd_prepare_plain(q, k, v, do, m, l), 5, warmup=1)
         # SDPA's backward with the boolean segment mask, the backward only
         keep = fs.segment_keep_mask(lengths, t)
         qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v))
@@ -488,28 +543,38 @@ def phase_flash_stock_bwd():
         dot = do.transpose(1, 2).contiguous()
         lib_ms = cuda_time_ms(
             lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
-        del out, qt, kt, vt
+        del out, qt, kt, vt, keep
 
         pairs = _visible_pairs(lens, t, h)
         io = b * t * h * d * 4  # one (B, T, H, D) f32 tensor
-        rows = 3 * b * h * t * 4  # m, l, di
-        dkv_bound = bound(4 * io + rows + 2 * io, 8 * pairs * d, PEAK_BF16_FLOPS)
-        dq_bound = bound(4 * io + rows + io, 6 * pairs * d, PEAK_BF16_FLOPS)
-        log(f"flash_stock_bwd T={t} lengths={lens} D={d}: rel_err dq={rel['dq']:.2e} "
+        rows = b * h * t * 4  # one (B, H, T) f32 tensor
+        dkv_bound = bound(4 * io + 3 * rows + 2 * io, 8 * pairs * d, PEAK_TF32_FLOPS)
+        dq_bound = bound(4 * io + 3 * rows + io, 6 * pairs * d, PEAK_TF32_FLOPS)
+        dkv_bf16 = bound(4 * io + 3 * rows + 2 * io, 8 * pairs * d, PEAK_BF16_FLOPS)[0]
+        dq_bf16 = bound(4 * io + 3 * rows + io, 6 * pairs * d, PEAK_BF16_FLOPS)[0]
+        prep_bound = bound(4 * io + 2 * rows + 7 * io + rows, 0, PEAK_TF32_FLOPS)
+        log(f"flash_stock_bwd T={t} B={b} lengths={lens} D={d}: rel_err dq={rel['dq']:.2e} "
             f"dk={rel['dk']:.2e} dv={rel['dv']:.2e} (max_abs_err dq={err['dq']:.3e} "
-            f"dk={err['dk']:.3e} dv={err['dv']:.3e}) residuals_ok={res_ok} ok={ok} "
-            f"dkv_ms={dkv_ms:.4f} ({8 * pairs * d / dkv_ms / 1e9:.1f} TFLOP/s, bound "
-            f"{dkv_bound[0]:.4f}) dq_ms={dq_ms:.4f} ({6 * pairs * d / dq_ms / 1e9:.1f} "
-            f"TFLOP/s, bound {dq_bound[0]:.4f}) plain_bwd_ms={plain_ms:.4f} "
+            f"dk={err['dk']:.3e} dv={err['dv']:.3e}) "
+            f"residuals_ok={res_ok if check_forward else 'not compared'} "
+            f"prep_ok={prep_ok} (lse2 max_abs_err {lse_err:.1e}) ok={ok} "
+            f"prep_ms={prep_ms:.4f} (bound {prep_bound[0]:.4f}, plain {plain_prep_ms:.4f}) "
+            f"dkv_ms={dkv_ms:.4f} ({8 * pairs * d / dkv_ms / 1e9:.1f} TFLOP/s, bound TF32 "
+            f"{dkv_bound[0]:.4f} bf16 {dkv_bf16:.4f}) dq_ms={dq_ms:.4f} "
+            f"({6 * pairs * d / dq_ms / 1e9:.1f} TFLOP/s, bound TF32 {dq_bound[0]:.4f} bf16 "
+            f"{dq_bf16:.4f}) prep+dkv+dq={prep_ms + dkv_ms + dq_ms:.4f} "
+            f"flash_stock_bwd_ms={bwd_ms:.4f} plain_bwd_ms={plain_ms:.4f} "
             f"sdpa_bwd_ms={lib_ms:.4f} fwd_ms={fwd_ms:.4f} fwd_residuals_ms={res_ms:.4f}")
         if not ok:
             fail(f"the stock flash backward disagrees with its plain version at T={t} D={d}")
         if (t, d) == (2048, 64):  # the training step's shape
             main = {
                 "dkv": dict(ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
-                            bound_by=dkv_bound[1], library_ms=lib_ms),
+                            bound_by=dkv_bound[1], bound_bf16_ms=dkv_bf16, library_ms=lib_ms),
                 "dq": dict(ms=dq_ms, plain_ms=plain_ms, bound_ms=dq_bound[0],
-                           bound_by=dq_bound[1], library_ms=lib_ms),
+                           bound_by=dq_bound[1], bound_bf16_ms=dq_bf16, library_ms=lib_ms),
+                "prep": dict(ms=prep_ms, plain_ms=plain_prep_ms, bound_ms=prep_bound[0],
+                             bound_by=prep_bound[1], library_ms=None, spills_d128=spills),
             }
     return {k: dict(max_abs_err=worst[k], **main[k]) for k in main}
 
@@ -587,7 +652,7 @@ def phase_train():
         long_rows = dummy_rows(20, seed=0, mel_frames=(1400, 2000))
         batches = run("B=2 mel 2048", long_rows, 8, dict(
             zero, flash_stock=per_step, flash_stock_bwd_dkv=per_step,
-            flash_stock_bwd_dq=per_step))
+            flash_stock_bwd_dq=per_step, flash_stock_bwd_prep=per_step))
         if any(b["y"].shape[1] != 2048 for b in batches) or len(batches) != 8:
             fail("the long training batches did not land in the 2048-frame bucket")
         moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
@@ -665,7 +730,8 @@ def phase_train_reference():
     card, cpu = results["cuda"], results["cpu"]
     per_call = est.num_mid_blocks + 2
     want = {"flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
-            "flash_stock_bwd_dq": per_call, "flash_attention": 0, "resblock_stage": 0}
+            "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call,
+            "flash_attention": 0, "resblock_stage": 0}
     loss_gap = {k: abs(card["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
     diff = sum(float(torch.sum((card["grads"][n] - g) ** 2)) for n, g in cpu["grads"].items())
     ref = sum(float(torch.sum(g ** 2)) for g in cpu["grads"].values())
@@ -763,7 +829,8 @@ def run_request(synth, label, expect_bucket=None, **kw):
         np.isfinite(res.wav).all()
         and res.wav.shape == (res.mel_frames * 480,)
         and launches == {"flash_attention": want_flash, "resblock_stage": 2, "flash_stock": 0,
-                         "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0}
+                         "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
+                         "flash_stock_bwd_prep": 0}
         and (expect_bucket is None or bucket == expect_bucket)
     )
     t = {k: round(v, 6) for k, v in res.timings.items()}
@@ -881,7 +948,7 @@ def phase_long_form(synth):
             and head + t_mel == t_total
             and launches == {"flash_attention": want_k1, "flash_stock": want_k3,
                              "resblock_stage": 2, "flash_stock_bwd_dkv": 0,
-                             "flash_stock_bwd_dq": 0}
+                             "flash_stock_bwd_dq": 0, "flash_stock_bwd_prep": 0}
         )
         t = {k: round(v, 6) for k, v in res.timings.items()}
         log(f"long-form {label}: mel_frames={res.mel_frames} t_total={head + t_mel} "
@@ -994,6 +1061,12 @@ def main():
              replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
                       "(pallas_call of _flash_attention_bwd_dq)",
              launches=counts["flash_stock_bwd_dq"], **bwd["dq"]),
+        dict(name="flash_stock_bwd_prep", route="cuda",
+             source="jyutvoice_tpu_torch/csrc/flash_stock_bwd.cu",
+             replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1121 and :1456 "
+                      "(the operands of both backward pallas_calls, rounded and laid out "
+                      "once per backward for kernels 4 and 5)",
+             launches=counts["flash_stock_bwd_prep"], **bwd["prep"]),
     ]}
     log(smi)
     log(json.dumps(line))

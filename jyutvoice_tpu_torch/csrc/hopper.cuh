@@ -3,8 +3,8 @@
 // transaction count of a bulk copy), the 1-D bulk copy (TMA without a tensor
 // map) from global to shared memory, the async-proxy fence, a named barrier,
 // wgmma descriptors for 128-byte-swizzled tiles, the m64nNk16 bf16 -> f32
-// and m64nNk8 tf32 -> f32 wgmma with A in registers, their fence / commit /
-// wait, and setmaxnreg.
+// and m64nNk8 tf32 -> f32 wgmma with A in registers (and the m64n64k8 tf32
+// one with A in shared memory), their fence / commit / wait, and setmaxnreg.
 //
 // Tile layout (`sw128_offset`): a bf16 tile of R rows x C columns (C a
 // multiple of 64) is stored as C / 64 blocks of R rows x 128 bytes, block c
@@ -30,8 +30,11 @@
 // kk * 32 bytes into it. TF32 wgmma cannot transpose: B is always K-major.
 // The A register fragment of warp w holds a0 = row 16w + g, column tg;
 // a1 = row 16w + g + 8, column tg; a2, a3 = the same rows, column tg + 4,
-// each a tf32 in a 32-bit register (`to_tf32`). The accumulator fragment is
-// the one above.
+// each a tf32 in a 32-bit register. The accumulator fragment is the one
+// above, so the accumulator of columns 8kk..8kk+7 is the A fragment of an
+// 8-deep k-step whose reduction order is permuted within the step to
+// [0, 2, 4, 6, 1, 3, 5, 7] (a0, a1, a2, a3 = d[4kk], d[4kk+2], d[4kk+1],
+// d[4kk+3]); the B tile of that product stores its K index in that order.
 
 #pragma once
 
@@ -314,6 +317,26 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], const uint32_t 
     wgmma_m64n32k8_tf32_rs(d, a, desc_b, accumulate);
   else
     wgmma_m64n64k8_tf32_rs(d, a, desc_b, accumulate);
+}
+
+// d (64 x 64) += a (64 x 8) . b (8 x 64), both K-major tf32 tiles in shared
+// memory (desc_a, desc_b); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t desc_a,
+                                                       uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 }  // namespace jv

@@ -29,10 +29,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("flash_attention", "resblock_stage", "flash_stock", "flash_stock_bwd")
-# entry points counted in LAUNCHES: kernels 1-3, then kernels 4 and 5 (the
-# two entry points of csrc/flash_stock_bwd.cu)
+# entry points counted in LAUNCHES: kernels 1-3, then kernels 4 and 5 and
+# the preparation of their operands (the three entry points of
+# csrc/flash_stock_bwd.cu)
 KERNEL_NAMES = ("flash_attention", "resblock_stage", "flash_stock",
-                "flash_stock_bwd_dkv", "flash_stock_bwd_dq")
+                "flash_stock_bwd_dkv", "flash_stock_bwd_dq", "flash_stock_bwd_prep")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,9 +18,14 @@ residuals (the row max m and row sum l of the scaled scores, (B, H, T) f32)
 and its backward `flash_stock_bwd`: di = sum(o * do) in torch, then
 kernels 4 (`flash_stock_bwd_dkv`, dK and dV) and 5 (`flash_stock_bwd_dq`,
 dQ) of `csrc/flash_stock_bwd.cu`, the counterparts of the stock kernel's
-`_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`. Kernel 3's
-products take bf16 operands, kernels 4 and 5 TF32 ones, all with f32
-accumulation. On CPU tensors the same function runs the plain forward and
+`_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`. Both read their
+operands from one buffer that `flash_stock_bwd_prepare` writes once per
+backward (a third launch of the same source): q, do, k and v rounded to
+TF32 and laid out as the tiles wgmma reads, q, do and k also transposed,
+and the log2-domain normaliser of each row. Kernel 3's products take bf16
+operands, kernels 4 and 5 TF32 ones, all with f32 accumulation;
+`flash_stock_bwd_rounded` is their rounding in plain PyTorch. On CPU
+tensors the same function runs the plain forward and
 `flash_stock_bwd_plain`. Neither path falls back to the other.
 
 Layout: q, k, v (and do) are (B, T, H, D), last dim contiguous, any other
@@ -39,6 +44,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from jyutvoice_tpu_torch import kernels
+from jyutvoice_tpu_torch.nn.resblock_stage import swizzle_index, tf32_round
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 TILE = 64  # the kernels' query and key tile
@@ -48,15 +54,17 @@ _FWD_ARGTYPES = (
     + [ctypes.c_longlong] * 9
     + [ctypes.c_float, ctypes.c_void_p]
 )
-
-
-def _bwd_argtypes(n_ptr: int):
-    return (
-        [ctypes.c_void_p] * n_ptr
-        + [ctypes.c_int] * 4
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_void_p]
-    )
+_PREP_ARGTYPES = (
+    [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 4
+    + [ctypes.c_longlong] * 12
+    + [ctypes.c_void_p]
+)
+# kernel 4 (two outputs) and kernel 5 (one): prepared, di, outputs, lengths
+_BWD_ARGTYPES = {
+    n: [ctypes.c_void_p] * (3 + n) + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    for n in (1, 2)
+}
 
 
 def segment_keep_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -116,6 +124,80 @@ def flash_stock_bwd_plain(
     return _bwd_plain(q, k, v, do, m, l, flash_stock_di(o, do), lengths, scale)
 
 
+# ---------------------------------------------------------------------------
+# Kernels 4 and 5's operands and arithmetic in plain PyTorch
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+# the prepared buffer's tile images, in order; "_t": transposed
+PREP_REGIONS = ("q", "do", "q_t", "do_t", "k", "v", "k_t")
+# an accumulator serves as the A operand of the next tf32 product with its
+# columns in this order within each 8 (csrc/hopper.cuh); the transposed
+# images store their 64 positions so
+K_ORDER = tuple(8 * (i // 8) + (0, 2, 4, 6, 1, 3, 5, 7)[i % 8] for i in range(TILE))
+
+
+def prep_numel(b: int, t: int, h: int, d: int) -> int:
+    """f32 elements of the prepared buffer: 7 tile regions and lse2."""
+    return b * h * t * (len(PREP_REGIONS) * d + 1)
+
+
+def _tile_images(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) -> (B, H, T/64, 64 * D): each 64-row tile rounded to
+    TF32 as a K-major image, D/32 blocks of (64 rows x 32) each swizzled
+    (`swizzle_index`)."""
+    b, t, h, d = x.shape
+    y = tf32_round(x.float()).permute(0, 2, 1, 3).reshape(b, h, t // TILE, TILE, d // 32, 32)
+    y = y.transpose(3, 4).reshape(b, h, t // TILE, d // 32, TILE * 32)
+    return y[..., swizzle_index(TILE).to(x.device)].reshape(b, h, t // TILE, TILE * d)
+
+
+def _transposed_images(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, D) -> (B, H, T/64, D * 64): each tile rounded to TF32 and
+    transposed (D rows, the 64 positions in `K_ORDER`), as 2 blocks of
+    (D rows x 32) each swizzled."""
+    b, t, h, d = x.shape
+    y = tf32_round(x.float()).permute(0, 2, 1, 3).reshape(b, h, t // TILE, TILE, d)
+    y = y[:, :, :, list(K_ORDER)].transpose(3, 4)  # (b, h, nt, d, 64)
+    y = y.reshape(b, h, t // TILE, d, 2, 32).transpose(3, 4).reshape(b, h, t // TILE, 2, d * 32)
+    return y[..., swizzle_index(d).to(x.device)].reshape(b, h, t // TILE, d * TILE)
+
+
+def flash_stock_bwd_prepare_plain(q, k, v, do, m, l) -> torch.Tensor:
+    """The preparation in plain PyTorch: one flat f32 tensor holding the
+    tile images of `PREP_REGIONS` (q, do, k, v as `_tile_images`; q, do, k
+    transposed as `_transposed_images`), each (B, H, T/64, 64 D), then
+    lse2 = m log2(e) + log2(l), (B, H, T)."""
+    images = {"q": q, "do": do, "k": k, "v": v}
+    parts = [(_transposed_images(images[r[:-2]]) if r.endswith("_t") else _tile_images(images[r]))
+             for r in PREP_REGIONS]
+    lse2 = m.float() * LOG2E + torch.log2(l.float())
+    return torch.cat([a.reshape(-1) for a in parts] + [lse2.reshape(-1)])
+
+
+def flash_stock_bwd_rounded(
+    q, k, v, do, m, l, di, lengths, *, scale: float, round_scores=tf32_round,
+    round_grads=tf32_round,
+):
+    """Kernels 4 and 5's arithmetic in dense PyTorch, for their error budget:
+    q and k rounded by `round_scores` for s = q k^T, p = exp2(s scale
+    log2(e) - lse2) with masked entries 0, and every other operand (do, v,
+    p, ds = p (dp - di), q, k) rounded by `round_grads` where it enters a
+    product; f32 otherwise. Returns dq, dk, dv as `_bwd_plain` does."""
+    q, k, v, do = (a.float() for a in (q, k, v, do))
+    lse2 = m.float() * LOG2E + torch.log2(l.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", round_scores(q), round_scores(k))
+    p = torch.exp2(s * (scale * LOG2E) - lse2[..., None])
+    p = torch.where(segment_keep_mask(lengths, q.shape[1]), p, 0.0)
+    r = round_grads
+    dp = torch.einsum("bqhd,bkhd->bhqk", r(do), r(v))
+    ds = p * (dp - di[..., None])
+    dv = torch.einsum("bhqk,bqhd->bkhd", r(p), r(do))
+    dk = torch.einsum("bhqk,bqhd->bkhd", r(ds), r(q)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", r(ds), r(k)) * scale
+    return dq.contiguous(), dk.contiguous(), dv.contiguous()
+
+
 def _fn(source: str, name: str, argtypes):
     fn = getattr(kernels.load(source), name)
     if fn.argtypes is None:
@@ -125,8 +207,9 @@ def _fn(source: str, name: str, argtypes):
 
 
 def _check_operands(what: str, lengths, **tensors) -> None:
+    """Raise on operands the kernels do not take (lengths None: none to check)."""
     q = tensors["q"]
-    if not (q.is_cuda and lengths.device == q.device
+    if not (q.is_cuda and (lengths is None or lengths.device == q.device)
             and all(a.device == q.device for a in tensors.values())):
         raise ValueError(f"{what}: tensors and lengths must share one CUDA device")
     if q.dim() != 4 or any(a.shape != q.shape for a in tensors.values()):
@@ -142,7 +225,8 @@ def _check_operands(what: str, lengths, **tensors) -> None:
         if a.stride(3) != 1 or any(s % 4 for s in a.stride()[:3]) or a.data_ptr() % 16:
             raise ValueError(f"{what}: {name} needs a contiguous last dim, "
                              "strides that are multiples of 4 and 16-byte alignment")
-    if lengths.dtype != torch.int32 or lengths.shape != (q.shape[0],) or not lengths.is_contiguous():
+    if lengths is not None and (lengths.dtype != torch.int32 or lengths.shape != (q.shape[0],)
+                                or not lengths.is_contiguous()):
         raise ValueError(f"{what}: lengths must be a contiguous (B,) int32 tensor")
 
 
@@ -193,21 +277,49 @@ def _check_rows(what: str, q, **stats) -> None:
     b, t, h, _ = q.shape
     for name, a in stats.items():
         if a.shape != (b, h, t) or a.dtype != torch.float32 or not a.is_contiguous() \
-                or a.device != q.device:
-            raise ValueError(f"{what}: {name} must be a contiguous (B, H, T) float32 "
-                             "tensor on q's device")
+                or a.device != q.device or a.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be a contiguous, 16-byte aligned "
+                             "(B, H, T) float32 tensor on q's device")
 
 
-def _launch_bwd(entry, q, k, v, do, m, l, di, lengths, scale, outs):
+def flash_stock_bwd_prepare(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    m: torch.Tensor, l: torch.Tensor,
+) -> torch.Tensor:
+    """The operands of kernels 4 and 5 in the layout they read (one flat f32
+    tensor; `flash_stock_bwd_prepare_plain` says what it holds). CUDA
+    tensors launch the preparation kernel of `csrc/flash_stock_bwd.cu`;
+    CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_stock_bwd_prepare_plain(q, k, v, do, m, l)
+    _check_operands("flash_stock_bwd_prep", None, q=q, k=k, v=v, do=do)
+    _check_rows("flash_stock_bwd_prep", q, m=m, l=l)
+    b, t, h, d = q.shape
+    prep = torch.empty(prep_numel(b, t, h, d), device=q.device, dtype=torch.float32)
+    status = _fn("flash_stock_bwd", "jv_flash_stock_bwd_prep", _PREP_ARGTYPES)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
+        prep.data_ptr(), b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    kernels.check(status, "flash_stock_bwd_prep")
+    kernels.LAUNCHES["flash_stock_bwd_prep"] += 1
+    return prep
+
+
+def _launch_bwd(entry, q, k, v, do, m, l, di, lengths, scale, prepared, outs):
     what = entry[3:]  # the kernel's name in LAUNCHES
     _check_operands(what, lengths, q=q, k=k, v=v, do=do)
     _check_rows(what, q, m=m, l=l, di=di)
     b, t, h, d = q.shape
-    status = _fn("flash_stock_bwd", entry, _bwd_argtypes(7 + len(outs) + 1))(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), m.data_ptr(),
-        l.data_ptr(), di.data_ptr(), *(o.data_ptr() for o in outs), lengths.data_ptr(),
-        b, t, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    if prepared is None:
+        prepared = flash_stock_bwd_prepare(q, k, v, do, m, l)
+    elif (prepared.device != q.device or prepared.dtype != torch.float32
+          or prepared.numel() != prep_numel(b, t, h, d) or not prepared.is_contiguous()):
+        raise ValueError(f"{what}: `prepared` is not flash_stock_bwd_prepare's output "
+                         "for these operands")
+    status = _fn("flash_stock_bwd", entry, _BWD_ARGTYPES[len(outs)])(
+        prepared.data_ptr(), di.data_ptr(), *(o.data_ptr() for o in outs), lengths.data_ptr(),
+        b, t, h, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(status, what)
     kernels.LAUNCHES[what] += 1
@@ -220,29 +332,31 @@ def _grad_like(q):
 def flash_stock_bwd_dkv(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     m: torch.Tensor, l: torch.Tensor, di: torch.Tensor, lengths: torch.Tensor,
-    *, scale: float,
+    *, scale: float, prepared: torch.Tensor = None,
 ):
     """Kernel 4: (dk, dv), contiguous (B, T, H, D) f32, from the residuals
-    m, l and di = sum(o * do), each (B, H, T). CPU tensors take the plain
-    backward."""
+    m, l and di = sum(o * do), each (B, H, T). `prepared` is
+    `flash_stock_bwd_prepare`'s output for these operands; without it the
+    call prepares its own. CPU tensors take the plain backward."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, m, l, di, lengths, scale)[1:]
     dk, dv = _grad_like(q), _grad_like(q)
-    _launch_bwd("jv_flash_stock_bwd_dkv", q, k, v, do, m, l, di, lengths, scale, (dk, dv))
+    _launch_bwd("jv_flash_stock_bwd_dkv", q, k, v, do, m, l, di, lengths, scale, prepared,
+                (dk, dv))
     return dk, dv
 
 
 def flash_stock_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     m: torch.Tensor, l: torch.Tensor, di: torch.Tensor, lengths: torch.Tensor,
-    *, scale: float,
+    *, scale: float, prepared: torch.Tensor = None,
 ):
     """Kernel 5: dq, contiguous (B, T, H, D) f32, from the same inputs as
     kernel 4. CPU tensors take the plain backward."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, do, m, l, di, lengths, scale)[0]
     dq = _grad_like(q)
-    _launch_bwd("jv_flash_stock_bwd_dq", q, k, v, do, m, l, di, lengths, scale, (dq,))
+    _launch_bwd("jv_flash_stock_bwd_dq", q, k, v, do, m, l, di, lengths, scale, prepared, (dq,))
     return dq
 
 
@@ -253,13 +367,15 @@ def flash_stock_bwd(
 ):
     """dq, dk, dv (contiguous (B, T, H, D) f32) of kernel 3's output o given
     its gradient do and the residuals m, l. CUDA tensors compute
-    di = sum(o * do) in torch (as the JAX package does in XLA) and launch
-    kernels 4 and 5; CPU tensors take `flash_stock_bwd_plain`."""
+    di = sum(o * do) in torch (as the JAX package does in XLA), prepare the
+    operands once and launch kernels 4 and 5 on them; CPU tensors take
+    `flash_stock_bwd_plain`."""
     if q.device.type == "cpu":
         return flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths, scale=scale)
     di = flash_stock_di(o, do)
-    dk, dv = flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale)
-    dq = flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale)
+    prep = flash_stock_bwd_prepare(q, k, v, do, m, l)
+    dk, dv = flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep)
+    dq = flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep)
     return dq, dk, dv
 
 

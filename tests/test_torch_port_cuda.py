@@ -7,7 +7,8 @@ Tolerances as in test_torch_port_kernels.py: attention atol 5e-3 / rtol 2e-2
 on valid rows, ResBlock stage atol 2e-5 / rtol 1e-4; kernel 3 (stock flash)
 atol 5e-3 / rtol 1e-2 on every row, as in test_torch_port_longform.py;
 kernels 4 and 5 (its backward) max |err| / max |ref| <= 1e-2 for each of dq,
-dk and dv on every row (bf16 products, f32 accumulation).
+dk and dv on every row (TF32 products, f32 accumulation); their operand
+preparation equal to its plain version (lse2 to float rounding).
 """
 
 import pytest
@@ -192,6 +193,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         z = torch.zeros(1, 128, 2, 32, device=cuda)
         flash_stock(z, z, z, lens, scale=1.0)
+    from jyutvoice_tpu_torch.nn.flash_stock import flash_stock_bwd_dq
+
+    z, rows = torch.zeros(1, 128, 2, 64, device=cuda), torch.ones(1, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="prepared"):  # another shape's preparation
+        flash_stock_bwd_dq(z, z, z, z, rows, rows, rows, lens, scale=1.0,
+                           prepared=torch.zeros(10, device=cuda))
     with pytest.raises(ValueError, match="C="):
         resblock_stage(torch.zeros(1, 8, 24, device=cuda), torch.zeros(1, device=cuda),
                        kernel_sizes=(3,), dilations=(1,))
@@ -227,6 +234,7 @@ def test_small_synthesizer_goes_through_both_kernels(cuda):
         "flash_attention": 2 * (est.num_mid_blocks + 2) * est.n_blocks,
         "resblock_stage": 3,  # base 64: all three stages have C <= 128
         "flash_stock": 0, "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
+        "flash_stock_bwd_prep": 0,
     }
 
 
@@ -261,13 +269,25 @@ def _qkv_views(g, b, t, h, d, device):
 @pytest.mark.parametrize(
     "t,lengths,d",
     [(2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (512, [1, 512], 64),
-     (640, [0, 333], 64), (1024, [700, 1024], 128), (256, [100, 191], 64)],
+     (640, [0, 333], 64), (1024, [700, 1024], 128), (256, [100, 191], 64),
+     # one tile; T % 128 == 64 (the last block's second consumer sits out);
+     # lengths 0, 1, 63 and 65 across tile edges; D = 128 at the training
+     # shape; a wide grid (the short training shape, batch 16)
+     (64, [64, 30], 64), (192, [192, 100], 64), (320, [0, 1, 63, 65], 64),
+     (2048, [2048, 1700], 128), (512, [512 - 4 * i for i in range(16)], 64)],
 )
 def test_flash_stock_backward_kernels_match_plain(cuda, t, lengths, d):
+    """Through flash_stock_bwd (one preparation for both kernels) and each
+    kernel standalone (preparing its own operands)."""
     from jyutvoice_tpu_torch.nn.flash_stock import (
         flash_stock,
         flash_stock_bwd,
+        flash_stock_bwd_dkv,
+        flash_stock_bwd_dq,
         flash_stock_bwd_plain,
+        flash_stock_bwd_prepare,
+        flash_stock_bwd_prepare_plain,
+        flash_stock_di,
         flash_stock_plain,
     )
 
@@ -277,18 +297,28 @@ def test_flash_stock_backward_kernels_match_plain(cuda, t, lengths, d):
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     scale = d ** -0.5
     o, m, l = flash_stock(q, k, v, lens, scale=scale, residuals=True)
+    got = flash_stock_bwd(q, k, v, o, do, m, l, lens, scale=scale)
+    want = flash_stock_bwd_plain(q, k, v, o, do, m, l, lens, scale=scale)
+    di = flash_stock_di(o, do)
+    alone = (flash_stock_bwd_dq(q, k, v, do, m, l, di, lens, scale=scale),
+             *flash_stock_bwd_dkv(q, k, v, do, m, l, di, lens, scale=scale))
+    for name, x, xa, y in zip(("dq", "dk", "dv"), got, alone, want):
+        assert x.shape == y.shape and x.is_contiguous()
+        rel = float((x - y).abs().max() / y.abs().max())
+        assert rel <= BWD_BAR, f"{name}: max |err| / max |ref| = {rel:.3e}"
+        torch.testing.assert_close(xa, x, rtol=0, atol=0)  # deterministic sums
+    prep = flash_stock_bwd_prepare(q, k, v, do, m, l)
+    ref = flash_stock_bwd_prepare_plain(q, k, v, do, m, l)
+    n = prep.numel() - len(lengths) * 8 * t  # the tile images, then lse2
+    assert torch.equal(prep[:n], ref[:n])
+    torch.testing.assert_close(prep[n:], ref[n:], rtol=1e-6, atol=1e-6)
+    # kernel 3's forward and residuals, which fed the above
     o_ref, m_ref, l_ref = flash_stock_plain(q, k, v, lens, scale=scale, residuals=True)
-    torch.testing.assert_close(o, o_ref, atol=5e-3, rtol=1e-2)
+    torch.testing.assert_close(o, o_ref, atol=5e-3, rtol=1e-2, msg="kernel 3's output")
     torch.testing.assert_close(m, m_ref, atol=5e-3, rtol=1e-2)
     # l scales with the row max, which the bf16 products move: compare the
     # log-sum-exp m + log l
     torch.testing.assert_close(m + torch.log(l), m_ref + torch.log(l_ref), atol=5e-3, rtol=1e-2)
-    got = flash_stock_bwd(q, k, v, o, do, m, l, lens, scale=scale)
-    want = flash_stock_bwd_plain(q, k, v, o, do, m, l, lens, scale=scale)
-    for name, x, y in zip(("dq", "dk", "dv"), got, want):
-        assert x.shape == y.shape and x.is_contiguous()
-        rel = float((x - y).abs().max() / y.abs().max())
-        assert rel <= BWD_BAR, f"{name}: max |err| / max |ref| = {rel:.3e}"
 
 
 def test_flash_stock_autograd_runs_kernels_3_4_5(cuda):
@@ -306,6 +336,7 @@ def test_flash_stock_autograd_runs_kernels_3_4_5(cuda):
     assert kernels.LAUNCHES["flash_stock"] == 1
     assert kernels.LAUNCHES["flash_stock_bwd_dkv"] == 1
     assert kernels.LAUNCHES["flash_stock_bwd_dq"] == 1
+    assert kernels.LAUNCHES["flash_stock_bwd_prep"] == 1  # one preparation for both
     plain = [x.clone().requires_grad_() for x in base]
     flash_stock_plain(*plain, lens, scale=d ** -0.5).backward(do)
     for name, x, y in zip(("dq", "dk", "dv"), leaves, plain):
@@ -353,7 +384,7 @@ def test_small_training_step_launch_counts(cuda):
     per_call = (cfg.cfm.estimator.num_mid_blocks + 2) * cfg.cfm.estimator.n_blocks
     assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0,
                                 "flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
-                                "flash_stock_bwd_dq": per_call}
+                                "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     for n, p in model.decoder.named_parameters():
         assert torch.equal(p, decoder[n]), n

@@ -7,7 +7,9 @@ of `torch_port_setup.py`:
     host `maximum_path` exactly, on ragged batches;
   * kernel 3's backward: `flash_stock_bwd_plain`, and the autograd path on
     CPU tensors, against JAX's `mha_reference_bwd` fed the residuals of
-    `mha_reference_no_custom_vjp` (atol 1e-5);
+    `mha_reference_no_custom_vjp` (atol 1e-5); kernels 4 and 5's TF32
+    rounding (`flash_stock_bwd_rounded`) within 5e-3 of the plain backward
+    and 1e-2 of JAX's; the plain layout of their prepared operands;
   * `duration_loss` and `cfm_loss` with fixed overrides, values and the
     gradient with respect to their input;
   * `compute_losses` with dropout off, cond_prob 1 and fixed CFM draws:
@@ -47,10 +49,15 @@ from jyutvoice_tpu_torch.models import estimator as pest
 from jyutvoice_tpu_torch.models import tts as ptts
 from jyutvoice_tpu_torch.nn import core as pcore
 from jyutvoice_tpu_torch.nn.flash_stock import (
+    PREP_REGIONS,
     flash_stock,
     flash_stock_bwd,
     flash_stock_bwd_plain,
+    flash_stock_bwd_prepare,
+    flash_stock_bwd_rounded,
+    flash_stock_di,
     flash_stock_plain,
+    prep_numel,
 )
 from jyutvoice_tpu_torch.train import checkpoints as pckpt
 from jyutvoice_tpu_torch.train import datamodule as pdm
@@ -97,8 +104,12 @@ def _to_port(a):
     return torch.from_numpy(a).transpose(1, 2)
 
 
-@pytest.mark.parametrize("t,lengths", [(128, [128, 77]), (192, [1, 192]), (256, [0, 129])])
-def test_flash_stock_backward_matches_mha_reference_bwd(t, lengths):
+BWD_CASES = [(128, [128, 77]), (192, [1, 192]), (256, [0, 129])]
+
+
+def _mha_reference_bwd(t, lengths):
+    """Seeded (B, H, T, D) q, k, v, do, JAX's `mha_reference_bwd` gradients
+    (dq, dk, dv) and the residuals o, l, m of `mha_reference_no_custom_vjp`."""
     b, h, d = len(lengths), 2, 64
     scale = d ** -0.5
     rng = np.random.default_rng(7)
@@ -111,7 +122,13 @@ def test_flash_stock_backward_matches_mha_reference_bwd(t, lengths):
     dq_j, dk_j, dv_j, _ = jflash.mha_reference_bwd(
         qs, jnp.asarray(k), jnp.asarray(v), None, seg, o_j, l_j, m_j, jnp.asarray(do))
     ref = [np.array(dq_j) * scale, np.array(dk_j), np.array(dv_j)]
-    o_j, l_j, m_j = (np.array(a) for a in (o_j, l_j, m_j))
+    return (q, k, v, do), ref, [np.array(a) for a in (o_j, l_j, m_j)]
+
+
+@pytest.mark.parametrize("t,lengths", BWD_CASES)
+def test_flash_stock_backward_matches_mha_reference_bwd(t, lengths):
+    scale = 64 ** -0.5
+    (q, k, v, do), ref, (o_j, l_j, m_j) = _mha_reference_bwd(t, lengths)
     lens = torch.tensor(lengths, dtype=torch.int32)
 
     # the plain forward's stats are the reference's residuals
@@ -143,6 +160,75 @@ def test_flash_stock_backward_matches_mha_reference_bwd(t, lengths):
     for x, r in zip((qt, kt, vt), ref):
         np.testing.assert_allclose(x.grad.transpose(1, 2).numpy(), r, atol=1e-5)
     assert not any(kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("t,lengths", BWD_CASES)
+def test_flash_stock_bwd_rounding_meets_the_bar(t, lengths):
+    """Kernels 4 and 5's arithmetic (TF32 operands, `flash_stock_bwd_rounded`)
+    stays within 5e-3 (max |err| / max |ref|, per gradient) of the plain f32
+    backward, half the kernels' 1e-2 bar, and within the bar of JAX's
+    `mha_reference_bwd`."""
+    scale = 64 ** -0.5
+    (q, k, v, do), ref, (o_j, l_j, m_j) = _mha_reference_bwd(t, lengths)
+    q, k, v, do = (_to_port(a) for a in (q, k, v, do))
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    m, l = torch.from_numpy(m_j), torch.from_numpy(l_j)
+    o = _to_port(o_j).contiguous()
+    got = flash_stock_bwd_rounded(q, k, v, do, m, l, flash_stock_di(o, do), lens, scale=scale)
+    plain = flash_stock_bwd_plain(q, k, v, o, do, m, l, lens, scale=scale)
+    for name, x, y, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        assert float((x - y).abs().max() / y.abs().max()) <= 5e-3, name
+        r = torch.from_numpy(r).transpose(1, 2)
+        assert float((x - r).abs().max() / r.abs().max()) <= 1e-2, name
+
+
+def _tf32_np(x):
+    """Round to TF32, ties away from zero, on the bits (numpy)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_stock_bwd_prepare_plain_layout(d):
+    """Every element of the prepared buffer where the kernels read it: tile
+    t of (b, h) of region r starts at (r B H T + (b H + h) T + 64 t) D;
+    natural images hold element (row i, column c) at
+    (c // 32) 64 32 + 32 i + ((c % 32) // 4 ^ i % 8) 4 + c % 4; transposed
+    ones hold row c, K index j (position 8 (j // 8) + [0,2,4,6,1,3,5,7][j % 8])
+    at (j // 32) D 32 + 32 c + ((j % 32) // 4 ^ c % 8) 4 + j % 4; lse2 follows.
+    Each slot is written once and the tiles round-trip to the TF32 values."""
+    b, t, h = 2, 128, 3
+    rng = np.random.default_rng(11)
+    qkv = rng.standard_normal((b, t, 3 * h * d)).astype(np.float32)
+    ops = {n: torch.from_numpy(qkv).view(b, t, 3, h, d)[:, :, i] for i, n in enumerate("qkv")}
+    ops["do"] = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
+    m = torch.from_numpy(rng.standard_normal((b, h, t)).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1.0, 50.0, (b, h, t)).astype(np.float32))
+    got = flash_stock_bwd_prepare(ops["q"], ops["k"], ops["v"], ops["do"], m, l).numpy()
+    assert got.size == prep_numel(b, t, h, d)
+
+    want = np.full(got.size, np.nan, np.float32)
+    i, c = np.meshgrid(np.arange(64), np.arange(d), indexing="ij")  # natural: row, column
+    nat = (c // 32) * 64 * 32 + i * 32 + (((c % 32) // 4) ^ (i % 8)) * 4 + c % 4
+    j, cc = np.meshgrid(np.arange(64), np.arange(d), indexing="ij")  # transposed: K index, row
+    pos = 8 * (j // 8) + np.array([0, 2, 4, 6, 1, 3, 5, 7])[j % 8]
+    tr = (j // 32) * d * 32 + cc * 32 + (((j % 32) // 4) ^ (cc % 8)) * 4 + j % 4
+    region = b * h * t * d
+    for r, name in enumerate(PREP_REGIONS):
+        x = _tf32_np(ops[name.removesuffix("_t")].numpy())
+        for bi in range(b):
+            for hi in range(h):
+                for ti in range(t // 64):
+                    tile = x[bi, 64 * ti:64 * ti + 64, hi]  # (64, d)
+                    base = r * region + ((bi * h + hi) * (t // 64) + ti) * 64 * d
+                    if name.endswith("_t"):
+                        want[base + tr] = tile[pos, cc]
+                    else:
+                        want[base + nat] = tile
+    want[len(PREP_REGIONS) * region:] = (m * np.float32(1.4426950408889634)
+                                         + torch.log2(l)).numpy().reshape(-1)
+    assert not np.isnan(want).any()  # every slot written once: the layout is a bijection
+    np.testing.assert_array_equal(got, want)
 
 
 def test_flash_stock_residuals_refuse_autograd():
