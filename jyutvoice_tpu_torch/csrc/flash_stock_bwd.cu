@@ -61,8 +61,10 @@
 //    to them. At D = 128 one consumer and one stage fit shared memory.
 // 4. Each block walks only the tiles its rows can see (a valid row sees the
 //    valid positions, a padded one the padded positions), so the work is
-//    len^2 + (T - len)^2 pairs per head; blocks take their rows heaviest
-//    first (`find_item`), so short blocks fill the last wave.
+//    len^2 + (T - len)^2 pairs per head. Blocks run in launch order:
+//    ranking them heaviest first from the lengths, in each block's
+//    prologue, made both kernels 3-30 % slower on the H100 and gained
+//    nothing with uneven lengths.
 // 5. Nothing is written twice and no atomics are used: kernel 4 owns its
 //    keys' dk and dv, kernel 5 its queries' dq, so the sums are
 //    deterministic.
@@ -125,55 +127,6 @@ __device__ __forceinline__ void visible_tiles(int start, int n, int len, int T, 
     hi = (len + TR - 1) / TR;  // every row valid: [0, len)
   } else if (start >= len) {
     lo = len / TR;  // every row padded: [len, T)
-  }
-}
-
-// The blocks of batch row b, `rows` rows each, in three runs: valid, the
-// one that holds position len (if any), padded; each run's size and the
-// tiles each of its blocks sees.
-struct Runs {
-  int n[3], w[3];
-};
-
-__device__ __forceinline__ Runs runs(int len, int T, int rows) {
-  const int nt = T / TR, nblk = (T + rows - 1) / rows;
-  Runs r;
-  r.n[0] = len >= T ? nblk : len / rows;
-  r.n[1] = (len < T && len % rows) ? 1 : 0;
-  r.n[2] = nblk - r.n[0] - r.n[1];
-  r.w[0] = (len + TR - 1) / TR;
-  r.w[1] = nt;
-  r.w[2] = nt - len / TR;
-  return r;
-}
-
-// Item `rank` of the launch: the items (b, blk) are ordered by the tiles
-// they see, most first, then by b * nblk + blk; a block takes item
-// blockIdx.x / H, so the heaviest blocks are launched first. Every thread
-// of the block takes part; the item lands in item[0] (b) and item[1] (blk).
-__device__ void find_item(int rank, const int* lengths, int B, int T, int rows, int* item) {
-  const int nblk = (T + rows - 1) / rows;
-  for (int j = threadIdx.x; j < B * nblk; j += blockDim.x) {
-    const int bj = j / nblk, blk = j % nblk;
-    const Runs rj = runs(seq_len(lengths, bj, T), T, rows);
-    const int w = rj.w[blk < rj.n[0] ? 0 : (blk < rj.n[0] + rj.n[1] ? 1 : 2)];
-    int rk = 0;
-    for (int b2 = 0; b2 < B; ++b2) {
-      const Runs r = runs(seq_len(lengths, b2, T), T, rows);
-      int first = b2 * nblk;
-      for (int k = 0; k < 3; ++k) {
-        if (r.w[k] > w) {
-          rk += r.n[k];
-        } else if (r.w[k] == w) {
-          rk += min(max(j - first, 0), r.n[k]);
-        }
-        first += r.n[k];
-      }
-    }
-    if (rk == rank) {
-      item[0] = bj;
-      item[1] = blk;
-    }
   }
 }
 
@@ -515,14 +468,13 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1) flash_stock_bwd_sm90(const 
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + bar_off);
   uint64_t* empty = full + NS;
   uint64_t* own_bar = empty + NS;  // D = 128: the consumers' own tiles
-  __shared__ int item[2];
 
-  const int T = p.T;
-  find_item(blockIdx.x / p.H, p.lengths, p.B, T, NC * TR, item);
-  __syncthreads();
-  const int b = item[0], h = blockIdx.x % p.H, bh = b * p.H + h;
+  // block x takes row block x / H % nblk of batch row x / H / nblk, head
+  // x % H: the heads of one row block are launched together
+  const int T = p.T, nblk = (T + NC * TR - 1) / (NC * TR);
+  const int b = blockIdx.x / p.H / nblk, h = blockIdx.x % p.H, bh = b * p.H + h;
   const int len = seq_len(p.lengths, b, T);
-  const int start = item[1] * NC * TR;
+  const int start = blockIdx.x / p.H % nblk * NC * TR;
   const int active = min(NC, (T - start) / TR);  // consumers with rows
   int t_lo, t_hi;
   visible_tiles(start, active * TR, len, T, t_lo, t_hi);
