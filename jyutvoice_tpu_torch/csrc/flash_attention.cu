@@ -50,7 +50,8 @@ extern "C" int jv_flash_attention_fwd(
            {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
            scale, jv::LOG2E, chunk, left};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_picked<64, Rule::KeyBand, false>(p, B, st);
-  if (D == 128) return (int)launch_picked<128, Rule::KeyBand, false>(p, B, st);
+  // bf16 products (kF16 false), as the Pallas kernel's
+  if (D == 64) return (int)launch_picked<64, Rule::KeyBand, false, false>(p, B, st);
+  if (D == 128) return (int)launch_picked<128, Rule::KeyBand, false, false>(p, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,14 @@
 // The Hopper main loop shared by kernel 1 (`flash_attention.cu`) and kernel
 // 3 (`flash_stock.cu`): forward flash attention over f32 (B, T, H, D) views
-// with bf16 products on wgmma and f32 accumulation. The two kernels differ
+// with 16-bit products on wgmma and f32 accumulation. The two kernels differ
 // only in their key rule (`Rule`), in where the softmax scale is applied
 // (`Params::q_scale` before the rounding of q, `Params::s_scale` after the
-// product) and in the residual output; each source's header says what
-// bounds it and why this design.
+// product), in the residual output and in the product type (`kF16`): kernel
+// 1 rounds q, k, P and v to bf16, as its Pallas original does; kernel 3 to
+// fp16, whose 3 more mantissa bits keep rows that see a handful of keys
+// within its bar (`scripts/flash_fwd_precision.py`: with bf16 the rounding
+// of q and k in the scores alone put such rows past it). Each source's
+// header says what bounds it and why this design.
 //
 // One block owns NC * 64 query rows of one (b, h) and has NC + 1
 // warpgroups:
@@ -12,13 +16,13 @@
 //   f32, into a ring of NS staging slots with cp.async (each thread copies
 //   its own 16-byte chunks, so NS tiles are in flight without registers or
 //   a barrier), then rounds the tile it waited for once into a 128-byte-
-//   swizzled bf16 K tile and V tile in one of NB stages, fences the async
+//   swizzled 16-bit K tile and V tile in one of NB stages, fences the async
 //   proxy and arrives on that stage's `full` mbarrier;
-// - each consumer warpgroup owns 64 query rows, holds its q rows as bf16 A
+// - each consumer warpgroup owns 64 query rows, holds its q rows as 16-bit A
 //   fragments in registers for the whole block, and per tile waits on
 //   `full`, computes S = q.k^T with wgmma (A in registers, the K tile as a
 //   K-major B operand), runs the online softmax on the accumulator
-//   registers in the log2 domain, packs P to bf16 as the register A operand
+//   registers in the log2 domain, packs P to 16 bits as the register A operand
 //   of O += P.V (the V tile as an MN-major B operand), and arrives on the
 //   stage's `empty` mbarrier, on which the producer waits before refilling.
 // setmaxnreg moves registers from the producer to the consumers (NC >= 2).
@@ -43,7 +47,7 @@ namespace fwd {
 
 constexpr int BK = 64;       // keys per tile
 constexpr int WG_ROWS = 64;  // query rows per consumer warpgroup
-constexpr int NB = 3;        // bf16 stages read by wgmma
+constexpr int NB = 3;        // 16-bit stages read by wgmma
 constexpr float NEG_BIG = -1e30f;  // a masked score
 
 struct Params {
@@ -56,7 +60,7 @@ struct Params {
   const int* lengths;
   int T, H;
   Strides qs, ks, vs;
-  float q_scale;  // multiplies q in f32 before it is rounded to bf16
+  float q_scale;  // multiplies q in f32 before it is rounded to 16 bits
   float s_scale;  // multiplies q.k after the product (log2 domain)
   int chunk, left;  // kernel 1's streaming band; chunk <= 0: none
 };
@@ -97,7 +101,7 @@ __device__ __forceinline__ void tile_range(const Params& p, int len, int r0, int
 
 template <int D, int NS>
 struct Layout {
-  static constexpr int TILE = BK * D * 2;  // one bf16 K or V tile
+  static constexpr int TILE = BK * D * 2;  // one 16-bit K or V tile
   static constexpr int STAGE = 2 * TILE;   // K tile, then V tile
   static constexpr int SLOT = 2 * BK * D * 4;  // one f32 staging slot: K rows, then V rows
   static constexpr int f32_off = NB * STAGE;
@@ -105,7 +109,7 @@ struct Layout {
   static constexpr size_t bytes = bar_off + 2 * NB * 8 + 1024;  // + 1024-byte alignment slack
 };
 
-template <int D, int NS>
+template <int D, int NS, bool kF16>
 __device__ __forceinline__ void produce(const Params& p, uint8_t* smem, uint64_t* full,
                                         uint64_t* empty, int b, int h, int t_lo, int ntiles,
                                         int pt) {
@@ -161,8 +165,10 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* smem, uint64_t
         y = *reinterpret_cast<const float4*>(vs + i * 4);
       }
       const uint32_t off = sw128_offset(BK, r, c);
-      *reinterpret_cast<uint2*>(kt + off) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
-      *reinterpret_cast<uint2*>(vt + off) = make_uint2(pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+      *reinterpret_cast<uint2*>(kt + off) =
+          make_uint2(pack2<kF16>(x.x, x.y), pack2<kF16>(x.z, x.w));
+      *reinterpret_cast<uint2*>(vt + off) =
+          make_uint2(pack2<kF16>(y.x, y.y), pack2<kF16>(y.z, y.w));
     }
     fence_proxy_async();
     mbar_arrive(&full[s]);
@@ -170,7 +176,7 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* smem, uint64_t
   }
 }
 
-template <int D, int NS, Rule R, bool kResiduals>
+template <int D, int NS, Rule R, bool kResiduals, bool kF16>
 __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t* full,
                                         uint64_t* empty, int bh, int b, int h, int len,
                                         int t_lo, int ntiles, int w0, int ct) {
@@ -184,7 +190,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
   const int r0 = w0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
   const int rows[2] = {r0, r0 + 8};
 
-  // q rows as bf16 A fragments (scaled first where the rule says so)
+  // q rows as 16-bit A fragments (scaled first where the rule says so)
   const float* qb = p.q + b * p.qs.b + h * p.qs.h;
   uint32_t qf[KS][4];
 #pragma unroll
@@ -199,7 +205,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      qf[kk][e] = pack_bf16(x[e].x * p.q_scale, x[e].y * p.q_scale);
+      qf[kk][e] = pack2<kF16>(x[e].x * p.q_scale, x[e].y * p.q_scale);
   }
 
   int klo[2], khi[2];  // each row's visible keys; rows past T see none
@@ -222,7 +228,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
   float m[2] = {NEG_BIG, NEG_BIG};  // running max (log2 domain)
   float l[2] = {0.f, 0.f};          // running sum over this thread's columns
   float s[BK / 2];                  // the score tile, then its probabilities
-  uint32_t pa[BK / 16][4];          // P as bf16 A fragments of P.V
+  uint32_t pa[BK / 16][4];          // P as 16-bit A fragments of P.V
   float alpha[2];
 
   // S = q . k^T of the tile in stage st (started, not waited for)
@@ -231,7 +237,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const uint64_t desc = sw128_desc(k_addr + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024);
-      wgmma_rs<BK, 0>(s, qf[kk], desc, kk > 0);
+      wgmma_rs<BK, 0, kF16>(s, qf[kk], desc, kk > 0);
     }
     wgmma_commit();
   };
@@ -242,7 +248,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t desc = sw128_desc(v_addr + kk * 16 * 128, BK * 128, 1024);
-      wgmma_rs<D, 1>(acc, pa[kk], desc, 1);
+      wgmma_rs<D, 1, kF16>(acc, pa[kk], desc, 1);
     }
     wgmma_commit();
   };
@@ -311,10 +317,10 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
     }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      pa[kk][0] = pack2<kF16>(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack2<kF16>(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack2<kF16>(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack2<kF16>(s[8 * kk + 6], s[8 * kk + 7]);
     }
   };
 
@@ -400,7 +406,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t
   }
 }
 
-template <int D, int NC, int NS, Rule R, bool kResiduals>
+template <int D, int NC, int NS, Rule R, bool kResiduals, bool kF16>
 __global__ void __launch_bounds__((NC + 1) * 128, 1) flash_fwd_sm90(const Params p) {
   using L = Layout<D, NS>;
   extern __shared__ uint8_t smem_raw[];
@@ -436,28 +442,28 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1) flash_fwd_sm90(const Params
   const int wg = threadIdx.x / 128;
   if (wg == NC) {
     if constexpr (NC >= 2) setmaxnreg_dec<kProducerRegs>();
-    produce<D, NS>(p, smem, full, empty, b, h, t_lo, ntiles, threadIdx.x % 128);
+    produce<D, NS, kF16>(p, smem, full, empty, b, h, t_lo, ntiles, threadIdx.x % 128);
   } else {
     if constexpr (NC >= 2) setmaxnreg_inc<kConsumerRegs>();
     const int w0 = q0 + wg * WG_ROWS;
     if (w0 < T)
-      consume<D, NS, R, kResiduals>(p, smem, full, empty, bh, b, h, len, t_lo, ntiles, w0,
-                                    threadIdx.x % 128);
+      consume<D, NS, R, kResiduals, kF16>(p, smem, full, empty, bh, b, h, len, t_lo, ntiles,
+                                          w0, threadIdx.x % 128);
   }
 }
 
 // launches one configuration; the shared-memory attribute is set once per
 // instantiation (the first launch), not on every launch
-template <int D, int NC, int NS, Rule R, bool kResiduals>
+template <int D, int NC, int NS, Rule R, bool kResiduals, bool kF16>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   using L = Layout<D, NS>;
   static_assert(L::bytes <= 232448, "shared memory over the H100's 227 KB per block");
   static const cudaError_t attr =
-      cudaFuncSetAttribute(flash_fwd_sm90<D, NC, NS, R, kResiduals>,
+      cudaFuncSetAttribute(flash_fwd_sm90<D, NC, NS, R, kResiduals, kF16>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.T + NC * WG_ROWS - 1) / (NC * WG_ROWS), B * p.H);
-  flash_fwd_sm90<D, NC, NS, R, kResiduals><<<grid, (NC + 1) * 128, L::bytes, stream>>>(p);
+  flash_fwd_sm90<D, NC, NS, R, kResiduals, kF16><<<grid, (NC + 1) * 128, L::bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -498,15 +504,15 @@ inline int num_sms() {
 // launches the configuration pick_consumers chooses for this grid; the f32
 // staging ring holds 4 tiles at D = 64 and 2 at D = 128 (shared memory:
 // 177 / 225 KB)
-template <int D, Rule R, bool kResiduals>
+template <int D, Rule R, bool kResiduals, bool kF16>
 cudaError_t launch_picked(const Params& p, int B, cudaStream_t stream) {
   constexpr int NS = D == 64 ? 4 : 2;
   const int nc = pick_consumers(p.T, B * p.H, num_sms(), D == 64 ? 3 : 2);
   if constexpr (D == 64) {
-    if (nc == 3) return launch<D, 3, NS, R, kResiduals>(p, B, stream);
+    if (nc == 3) return launch<D, 3, NS, R, kResiduals, kF16>(p, B, stream);
   }
-  if (nc == 2) return launch<D, 2, NS, R, kResiduals>(p, B, stream);
-  return launch<D, 1, NS, R, kResiduals>(p, B, stream);
+  if (nc == 2) return launch<D, 2, NS, R, kResiduals, kF16>(p, B, stream);
+  return launch<D, 1, NS, R, kResiduals, kF16>(p, B, stream);
 }
 
 }  // namespace fwd

@@ -8,9 +8,14 @@
 // i sees key j iff the ids are equal. Valid queries see the valid keys and
 // padded queries only the padded keys, so no row is empty and every row is
 // computed, padded ones included. Scores are q.k accumulated in f32 and
-// scaled after the product, as the stock kernel does; products take bf16
-// inputs (q, k, the probabilities and v), which is what the TPU's default
-// f32 matmul precision gives the stock kernel too.
+// scaled after the product, as the stock kernel does; products take fp16
+// inputs (q, k, the probabilities and v). The TPU's default f32 matmul
+// precision gives the stock kernel bf16 inputs, but with bf16 a padded row
+// that sees 8-12 keys (batch 16 at T = 512) missed the bar atol 5e-3 /
+// rtol 1e-2 against the f32 version, mostly through the rounding of q and
+// k in its scores; fp16's 3 more mantissa bits keep every row within it
+// (`scripts/flash_fwd_precision.py`). fp16 holds |q|, |k|, |v| up to 65504,
+// far above the estimator's activations.
 //
 // Layout: q, k, v are (B, T, H, D) with the last dim contiguous and any
 // strides on B, T and H, so the estimator's (B, T, H*D) projections are read
@@ -28,7 +33,7 @@
 // per block (two or three consumer warpgroups of 64 rows on wgmma, scores
 // and accumulator in registers) share every staged k/v tile, cutting the L2
 // traffic of 64-row blocks by 2-3x; a producer warpgroup keeps four f32
-// tiles in flight with cp.async and rounds each once into a swizzled bf16
+// tiles in flight with cp.async and rounds each once into a swizzled fp16
 // tile, so the rounding happens in the kernel and no cast pass goes through
 // device memory. The header's `pick_consumers` chooses 1-3 consumers by the
 // waves of blocks each gives, the same rule as kernel 1's; at the long-form
@@ -63,11 +68,12 @@ extern "C" int jv_flash_stock_fwd(
            {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh}, {v_sb, v_st, v_sh},
            1.f, scale * jv::LOG2E, 0, -1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // fp16 products (kF16 true)
   if (D == 64)
-    return (int)(res ? launch_picked<64, Rule::Segments, true>(p, B, st)
-                     : launch_picked<64, Rule::Segments, false>(p, B, st));
+    return (int)(res ? launch_picked<64, Rule::Segments, true, true>(p, B, st)
+                     : launch_picked<64, Rule::Segments, false, true>(p, B, st));
   if (D == 128)
-    return (int)(res ? launch_picked<128, Rule::Segments, true>(p, B, st)
-                     : launch_picked<128, Rule::Segments, false>(p, B, st));
+    return (int)(res ? launch_picked<128, Rule::Segments, true, true>(p, B, st)
+                     : launch_picked<128, Rule::Segments, false, true>(p, B, st));
   return (int)cudaErrorInvalidValue;
 }

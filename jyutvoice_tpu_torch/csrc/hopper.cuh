@@ -2,8 +2,8 @@
 // ResBlock stage: shared-memory mbarriers with phase parity (and the
 // transaction count of a bulk copy), the 1-D bulk copy (TMA without a tensor
 // map) from global to shared memory, the async-proxy fence, a named barrier,
-// wgmma descriptors for 128-byte-swizzled tiles, the m64nNk16 bf16 -> f32
-// and m64nNk8 tf32 -> f32 wgmma with A in registers (and the m64n64k8 tf32
+// wgmma descriptors for 128-byte-swizzled tiles, the m64nNk16 bf16 or fp16
+// -> f32 and m64nNk8 tf32 -> f32 wgmma with A in registers (and the m64n64k8 tf32
 // one with A in shared memory), their fence / commit / wait, and setmaxnreg.
 //
 // Tile layout (`sw128_offset`): a bf16 tile of R rows x C columns (C a
@@ -18,7 +18,7 @@
 // holds rows 16w + g and 16w + g + 8 (g = lane / 4, tg = lane % 4);
 // d[4j], d[4j+1] are row 16w + g, columns 8j + 2tg and 8j + 2tg + 1, and
 // d[4j+2], d[4j+3] the same columns of row 16w + g + 8. Its A register
-// fragment for one 16-deep k-step holds, as packed bf16 pairs, a0 = row g,
+// fragment for one 16-deep k-step holds, as packed bf16 (or fp16) pairs, a0 = row g,
 // columns 2tg..2tg+1; a1 = row g + 8, the same columns; a2, a3 = rows g and
 // g + 8, columns 2tg+8..2tg+9 (rows within the warp's 16). So the
 // accumulator of columns 16kk..16kk+15, rounded to bf16 and packed in
@@ -180,65 +180,71 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// d (64 x 64) += a (64 x 16, registers) . b (16 x 64, shared memory via desc_b);
-// the first k-step of a product passes accumulate = 0 to overwrite d
-template <int kTransB>
+// The operand lists of the m64nNk16 wgmma with A in registers: N / 2 f32
+// accumulators, then the 4 A registers, desc_b, the accumulate flag and the
+// transpose of B.
+#define JV_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define JV_D32 JV_D8(0), JV_D8(8), JV_D8(16), JV_D8(24)
+#define JV_D64 JV_D32, JV_D8(32), JV_D8(40), JV_D8(48), JV_D8(56)
+#define JV_RS_IN "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), \
+                 "n"(kTransB)
+#define JV_WGMMA_N64(T)                                                                      \
+  "{\n.reg .pred p;\n"                                                                       \
+  "setp.ne.b32 p, %37, 0;\n"                                                                 \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." T "." T " "                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "       \
+  "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+#define JV_WGMMA_N128(T)                                                                     \
+  "{\n.reg .pred p;\n"                                                                       \
+  "setp.ne.b32 p, %69, 0;\n"                                                                 \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." T "." T " "                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "       \
+  "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+
+// d (64 x 64) += a (64 x 16, registers) . b (16 x 64, shared memory via
+// desc_b), operands bf16 or (kF16) fp16; the first k-step of a product
+// passes accumulate = 0 to overwrite d
+template <int kTransB, bool kF16>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
-        "n"(kTransB));
+  if constexpr (kF16)
+    asm volatile(JV_WGMMA_N64("f16") : JV_D32 : JV_RS_IN);
+  else
+    asm volatile(JV_WGMMA_N64("bf16") : JV_D32 : JV_RS_IN);
 }
 
-// d (64 x 128) += a (64 x 16, registers) . b (16 x 128, shared memory via desc_b);
-// the first k-step of a product passes accumulate = 0 to overwrite d
-template <int kTransB>
+// d (64 x 128) += a (64 x 16, registers) . b (16 x 128, shared memory via
+// desc_b), operands bf16 or (kF16) fp16; the first k-step of a product
+// passes accumulate = 0 to overwrite d
+template <int kTransB, bool kF16>
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
-        "n"(kTransB));
+                                                 uint64_t desc_b, int accumulate) {
+  if constexpr (kF16)
+    asm volatile(JV_WGMMA_N128("f16") : JV_D64 : JV_RS_IN);
+  else
+    asm volatile(JV_WGMMA_N128("bf16") : JV_D64 : JV_RS_IN);
 }
 
+#undef JV_D8
+#undef JV_D32
+#undef JV_D64
+#undef JV_RS_IN
+#undef JV_WGMMA_N64
+#undef JV_WGMMA_N128
 
-template <int N, int kTransB>
+template <int N, int kTransB, bool kF16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
   if constexpr (N == 64)
-    wgmma_m64n64k16_rs<kTransB>(d, a, desc_b, accumulate);
+    wgmma_m64n64k16_rs<kTransB, kF16>(d, a, desc_b, accumulate);
   else
-    wgmma_m64n128k16_rs<kTransB>(d, a, desc_b, accumulate);
+    wgmma_m64n128k16_rs<kTransB, kF16>(d, a, desc_b, accumulate);
 }
 
 // ---- tf32 wgmma: d (64 x N) += a (64 x 8, registers) . b (8 x N, K-major

@@ -22,8 +22,9 @@ dQ) of `csrc/flash_stock_bwd.cu`, the counterparts of the stock kernel's
 operands from one buffer that `flash_stock_bwd_prepare` writes once per
 backward (a third launch of the same source): q, do, k and v rounded to
 TF32 and laid out as the tiles wgmma reads, q, do and k also transposed,
-and the log2-domain normaliser of each row. Kernel 3's products take bf16
-operands, kernels 4 and 5 TF32 ones, all with f32 accumulation;
+and the log2-domain normaliser of each row. Kernel 3's products take fp16
+operands (bf16 put rows that see a handful of keys past the bar:
+`scripts/flash_fwd_precision.py`), kernels 4 and 5 TF32 ones, all with f32 accumulation;
 `flash_stock_bwd_rounded` is their rounding in plain PyTorch. On CPU
 tensors the same function runs the plain forward and
 `flash_stock_bwd_plain`. Neither path falls back to the other.

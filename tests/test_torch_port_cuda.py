@@ -172,7 +172,7 @@ def test_flash_stock_residuals_match_plain(cuda):
     assert m.shape == l.shape == (len(lengths), 8, t) and m.is_contiguous() and l.is_contiguous()
     torch.testing.assert_close(o, o_ref, atol=5e-3, rtol=1e-2)
     torch.testing.assert_close(m, m_ref, atol=5e-3, rtol=1e-2)
-    # l scales with the row max, which the bf16 products move: compare the
+    # l scales with the row max, which the 16-bit products move: compare the
     # log-sum-exp m + log l
     torch.testing.assert_close(m + torch.log(l), m_ref + torch.log(l_ref), atol=5e-3, rtol=1e-2)
 
@@ -316,7 +316,7 @@ def test_flash_stock_backward_kernels_match_plain(cuda, t, lengths, d):
     o_ref, m_ref, l_ref = flash_stock_plain(q, k, v, lens, scale=scale, residuals=True)
     torch.testing.assert_close(o, o_ref, atol=5e-3, rtol=1e-2, msg="kernel 3's output")
     torch.testing.assert_close(m, m_ref, atol=5e-3, rtol=1e-2)
-    # l scales with the row max, which the bf16 products move: compare the
+    # l scales with the row max, which the 16-bit products move: compare the
     # log-sum-exp m + log l
     torch.testing.assert_close(m + torch.log(l), m_ref + torch.log(l_ref), atol=5e-3, rtol=1e-2)
 
