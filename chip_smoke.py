@@ -46,6 +46,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      15000-frame bucket (kernel 1 at T = 15000, no kernel 3); one short
      request is checked against the same model run on the CPU through the
      plain versions;
+  6b. voice cloning from reference audio: a full-width PromptExtractor
+     (seeded random flow-encoder, CAM++ and S3 trees) on the card against
+     the same on the CPU, on a 5 s cut of phase 6's Cantonese waveform fed
+     at 24 kHz and resampled to 16 and 44.1 kHz (mel energies within 1e-5
+     + 1e-3 of the CPU's, spk_embed and prompt_h within 1e-2 of max |ref|, the flow encoder on
+     the card's tokens on both sides, the share of equal tokens reported
+     and at least 0.9; the extraction launches no kernel); extract_batch
+     with the DSP on the card on 4 rows of different lengths and rates
+     against per-row calls; one cloned request at the 512-frame bucket
+     (560 kernel-1 and 2 kernel-2 launches, counted in the kernel line);
+     CUDA-event times of the components, cold and warm;
   7. the long-form path: synthesize_long with exact attention at 4096 frames
      (kernel 3), the same in auto mode (banded), exact with a 100-frame
      prompt (2560 frames in all, kernel 3), and synthesize past the
@@ -68,8 +79,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      at the short shape (batch 16, text 128, mel 512, "plain" attention);
      then one deterministic step of a reduced-depth full-width model, its
      losses and trainable gradients on the card against the CPU.
-Launch counts are zeroed before and read after each request of phases 6
-and 7 and each training step of phase 9. The line before the last is a JSON
+Launch counts are zeroed before and read after each request of phases 6,
+6b and 7 and each training step of phase 9. The line before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
 available.
@@ -222,12 +233,14 @@ def _short_kernel_name(mangled):
     m = re.search(r"flash_stock_bwd_prep_kernelILi(\d+)E", mangled)
     if m:
         return f"flash_stock_bwd_prep<D={m.group(1)}>"
-    m = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELNS0_4RuleE(\d)ELb(\d)", mangled)
+    m = re.search(r"flash_fwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELNS0_4RuleE(\d)ELb(\d)ELb(\d)",
+                  mangled)
     if not m:
         return mangled
-    d, nc, ns, rule, res = m.groups()
+    d, nc, ns, rule, res, f16 = m.groups()
     return (f"flash_fwd_sm90<D={d}, consumers={nc}, stages={ns}, "
-            f"{('key band', 'segments')[int(rule)]}{', residuals' if res == '1' else ''}>")
+            f"{('key band', 'segments')[int(rule)]}{', residuals' if res == '1' else ''}, "
+            f"{'fp16' if f16 == '1' else 'bf16'}>")
 
 
 def phase_build():
@@ -874,7 +887,169 @@ def phase_main_path(synth):
         results[label] = res
         for k in counts:
             counts[k] += launches[k]
-    return results, counts
+    return results, counts, scale
+
+
+# card against CPU, the 24 kHz log-mel compared as mel energies: |mel - ref|
+# <= 1e-5 (the log's clamp floor) + 1e-3 ref. A log-mel near the floor
+# amplifies the f32 DFT's rounding: at mel 1e-4 a 3e-6 difference is 0.03
+# in the log.
+CLONE_MEL_ATOL, CLONE_MEL_RTOL = 1e-5, 1e-3
+CLONE_REL = 1e-2  # card against CPU: max |err| / max |ref| of spk_embed and prompt_h
+CLONE_TOKEN_SHARE = 0.9  # card against CPU: the least share of speech tokens that agree
+
+
+def _rel(a, b):
+    import numpy as np
+
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-12))
+
+
+def _mel_err(a, b):
+    """(max |log-mel error|, the largest |mel - ref| / (CLONE_MEL_ATOL +
+    CLONE_MEL_RTOL ref): at most 1 within the bar) of two log-mels."""
+    import numpy as np
+
+    n = min(len(a), len(b))
+    a, b = a[:n].astype(np.float64), b[:n].astype(np.float64)
+    ratio = np.abs(np.exp(a) - np.exp(b)) / (CLONE_MEL_ATOL + CLONE_MEL_RTOL * np.exp(b))
+    return float(np.abs(a - b).max()), float(ratio.max())
+
+
+def _event_ms(fn, loops=3):
+    """(cold ms of the first call, median warm ms of `loops` more), CUDA
+    events around each call."""
+    import statistics
+
+    import torch
+
+    times = []
+    for _ in range(1 + loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times[0], statistics.median(times[1:])
+
+
+def phase_clone(synth, ref_wav24, scale, smi):
+    """Voice cloning from reference audio at full width: a PromptExtractor on
+    the card (seeded random flow-encoder, CAM++ and S3 trees) against the
+    same on the CPU, at 24, 16 and 44.1 kHz; extract_batch with the DSP on
+    the card against per-row calls; one cloned request at the 512-frame
+    bucket; the components' CUDA-event times."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.audio.resample import resample_sinc
+    from jyutvoice_tpu_torch.models.campplus import apply_campplus
+    from jyutvoice_tpu_torch.models.flow_encoder import apply_flow_encoder
+    from jyutvoice_tpu_torch.models.s3_tokenizer import apply_s3_tokenizer
+    from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+    from jyutvoice_tpu_torch.weights import random_init
+
+    t0 = time.perf_counter()
+    trees = dict(
+        flow_encoder_params=random_init.init_flow_encoder_tree(synth.cfg.flow_encoder, seed=2),
+        flow_encoder_cfg=synth.cfg.flow_encoder,
+        campplus_params=random_init.init_campplus_tree(seed=3),
+        tokenizer_params=random_init.init_s3_tree(seed=4),
+    )
+    ex = PromptExtractor(device="cuda", **trees)
+    cpu = PromptExtractor(device="cpu", **trees)
+    log(f"clone: full-width extractors (flow encoder, CAM++, S3; seeds 2/3/4) on cuda and cpu "
+        f"in {time.perf_counter() - t0:.1f} s")
+    # about 5 s of phase 6's Cantonese waveform, at 24 kHz and resampled
+    wav24 = np.ascontiguousarray(ref_wav24[:120000], dtype=np.float32)
+    refs = {24000: wav24, 16000: resample_sinc(wav24, 24000, 16000),
+            44100: resample_sinc(wav24, 24000, 44100)}
+    feats = {}
+    for sr, audio in refs.items():
+        kernels.reset_launch_counts()
+        f = ex(audio, sr)
+        if any(kernels.LAUNCHES.values()):
+            fail(f"prompt extraction launched kernels: {kernels.LAUNCHES}")
+        g = cpu(audio, sr)
+        same_len = f.speech_tokens.shape == g.speech_tokens.shape
+        share = float((f.speech_tokens == g.speech_tokens).mean()) if same_len else 0.0
+        # the flow encoder on identical tokens: the card's, on both sides
+        h_cpu = cpu._encode_tokens(f.speech_tokens)[: f.prompt_h.shape[0]]
+        log_err, mel_ratio = _mel_err(f.prompt_feat, g.prompt_feat)
+        errs = dict(spk_embed=_rel(f.spk_embed, g.spk_embed), prompt_h=_rel(f.prompt_h, h_cpu))
+        finite = all(np.isfinite(x).all() for x in (f.prompt_feat, f.prompt_h, f.spk_embed))
+        log(f"clone @ {sr} Hz: prompt frames {f.prompt_feat.shape[0]} (cpu "
+            f"{g.prompt_feat.shape[0]}), tokens {f.speech_tokens.shape[0]}, token agreement "
+            f"card/cpu {share:.4f}, prompt_feat max_abs_err {log_err:.3e} (mel error / bar "
+            f"{mel_ratio:.3f}), spk_embed rel_err {errs['spk_embed']:.3e}, prompt_h (same "
+            f"tokens) rel_err {errs['prompt_h']:.3e} (bar {CLONE_REL}), finite={finite}")
+        if not (finite and f.prompt_h.shape == f.prompt_feat.shape
+                and f.prompt_feat.shape == g.prompt_feat.shape
+                and f.spk_embed.shape == (192,) and share >= CLONE_TOKEN_SHARE
+                and mel_ratio <= 1.0 and errs["spk_embed"] <= CLONE_REL
+                and errs["prompt_h"] <= CLONE_REL):
+            fail(f"the card's prompt extraction at {sr} Hz does not agree with the CPU")
+        feats[sr] = f
+
+    # extract_batch with the DSP on the card: 4 rows of different lengths and rates
+    rows = [(wav24, 24000), (refs[16000][:52000], 16000), (refs[44100][:180000], 44100),
+            (wav24[:41000], 24000)]
+    batch = ex.extract_batch([a for a, _ in rows], [sr for _, sr in rows], device_dsp=True)
+    for i, ((audio, sr), b) in enumerate(zip(rows, batch)):
+        if isinstance(b, Exception):
+            fail(f"extract_batch row {i} failed: {b!r}")
+        one = ex(audio, sr)
+        same_len = b.speech_tokens.shape == one.speech_tokens.shape
+        share = float((b.speech_tokens == one.speech_tokens).mean()) if same_len else 0.0
+        h_one = ex._encode_tokens(b.speech_tokens)[: b.prompt_h.shape[0]]
+        log_err, mel_ratio = _mel_err(b.prompt_feat, one.prompt_feat)
+        spk_err, h_err = _rel(b.spk_embed, one.spk_embed), _rel(b.prompt_h, h_one)
+        log(f"clone extract_batch(device_dsp=True) row {i} ({len(audio)} samples @ {sr} Hz) vs "
+            f"__call__: prompt frames {b.prompt_feat.shape[0]}/{one.prompt_feat.shape[0]}, "
+            f"token agreement {share:.4f}, prompt_feat max_abs_err {log_err:.3e} (mel error / "
+            f"bar {mel_ratio:.3f}), spk_embed rel_err {spk_err:.3e}, prompt_h (same tokens) "
+            f"rel_err {h_err:.3e}")
+        if not (same_len and b.prompt_feat.shape == one.prompt_feat.shape
+                and share >= CLONE_TOKEN_SHARE and mel_ratio <= 1.0
+                and spk_err <= CLONE_REL and h_err <= CLONE_REL):
+            fail(f"extract_batch row {i} does not agree with __call__")
+
+    # one cloned request at the 512-frame bucket (launches counted by run_request)
+    f = feats[24000]
+    _, launches = run_request(
+        synth, f"yue cloned from {f.prompt_feat.shape[0]} prompt frames @512", expect_bucket=512,
+        n_timesteps=10, text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3",
+        length_scale=scale, spk_embed=f.spk_embed, prompt_feat=f.prompt_feat,
+        prompt_h=f.prompt_h)
+
+    # CUDA-event times of the components, cold (first call) and warm
+    with torch.inference_mode():
+        dev = torch.device("cuda")
+        pad = (ex.mel.n_fft - ex.mel.hop) // 2
+        w24 = torch.from_numpy(np.pad(wav24, (pad, pad), mode="reflect")[None]).to(dev)
+        w16 = torch.from_numpy(np.pad(refs[16000], (200, 200), mode="reflect")[None]).to(dev)
+        len16 = torch.tensor([len(refs[16000])], device=dev)
+        tok = torch.from_numpy(f.speech_tokens[None].astype(np.int64)).to(dev)
+        n_tok = torch.tensor([tok.shape[1]], device=dev)
+        comps = {
+            "24 kHz mel": lambda: ex.mel.from_padded(w24),
+            "fbank + CAM++": lambda: apply_campplus(
+                ex.embedder.model, *ex._batch_dsp(w16, len16, True, False)[:2]),
+            "whisper mel + S3": lambda: apply_s3_tokenizer(
+                ex.tokenizer.model, *ex._batch_dsp(w16, len16, False, True)[2:]),
+            "flow encoder": lambda: apply_flow_encoder(ex.flow_encoder, tok, n_tok,
+                                                       exact_pad=True),
+        }
+        times = {name: _event_ms(fn) for name, fn in comps.items()}
+    times["whole extraction (24 kHz input, host work included)"] = _event_ms(
+        lambda: ex(wav24, 24000))
+    log(f"clone component times ({smi}), {f.prompt_feat.shape[0]} prompt frames, "
+        f"{tok.shape[1]} tokens, cold / warm ms: "
+        + ", ".join(f"{k} {c:.2f} / {w:.2f}" for k, (c, w) in times.items()))
+    return launches
 
 
 def phase_reference(synth, params_tts, params_hift):
@@ -1025,8 +1200,10 @@ def main():
     stock = phase_flash_stock()
     bwd = phase_flash_stock_bwd()
     stage = phase_stage(synth)
-    _, counts = phase_main_path(synth)
+    main_results, counts, scale = phase_main_path(synth)
     phase_reference(synth, params_tts, params_hift)
+    clone_counts = phase_clone(synth, main_results["yue+phone@512"].wav, scale, smi)
+    counts = {k: counts[k] + clone_counts[k] for k in counts}
     long_counts = phase_long_form(synth)
     phase_long_reference(synth, params_tts, params_hift)
     del synth

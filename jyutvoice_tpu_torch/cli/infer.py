@@ -1,13 +1,19 @@
-"""Text (+ optional phonetics) -> .wav with the PyTorch port.
+"""Text (+ optional phonetics, + optional reference audio) -> .wav with the
+PyTorch port.
 
 Example:
   python -m jyutvoice_tpu_torch.cli.infer \
       --text "佢 係 邊 個" --lang yue --phone "keoi5 hai6 bin1 go3" \
       --ckpt tts.npz --hift hift.npz --output out.wav
 
---ckpt / --hift take `.npz` parameter trees in the JAX package's format
-(`save_pytree_npz`); without them the weights are random, drawn from --seed.
-Runs on the GPU unless --device cpu is given.
+--ckpt, --hift and --flow-encoder take `.npz` parameter trees in the JAX
+package's format (`save_pytree_npz`) or the reference's torch files
+(`.pt` / `.ckpt`, converted by `weights/torch_convert.py`); without --ckpt /
+--hift the weights are random, drawn from --seed. Voice cloning takes
+--ref-audio with the CAM++ ONNX (--campplus-onnx), the speech tokenizer
+(--tokenizer-torch or a name-preserving --tokenizer-onnx) and the flow
+encoder (--flow-encoder), as the reference does. Runs on the GPU unless
+--device cpu is given.
 """
 
 from __future__ import annotations
@@ -30,14 +36,51 @@ def save_wav(path: str, audio: np.ndarray, sr: int = 24000) -> None:
         f.writeframes(pcm.tobytes())
 
 
-def main(argv=None, cfg=None):
+def load_wav(path: str):
+    """16-bit PCM .wav -> (float32 samples in [-1, 1), mono, sample rate)."""
+    with wave.open(path, "rb") as f:
+        sr = f.getframerate()
+        data = np.frombuffer(f.readframes(f.getnframes()), dtype=np.int16)
+        if f.getnchannels() > 1:
+            data = data.reshape(-1, f.getnchannels()).mean(axis=1)
+    return data.astype(np.float32) / 32768.0, sr
+
+
+def load_params(path: str, kind: str, cfg):
+    """A JAX-layout parameter tree from an .npz tree or a torch checkpoint;
+    kind is "tts", "hift" or "flow_encoder"."""
+    from jyutvoice_tpu_torch.weights import torch_convert as tc
+    from jyutvoice_tpu_torch.weights.from_jax import load_pytree_npz
+
+    if path.endswith(".npz"):
+        return load_pytree_npz(path)
+    sd = tc.load_torch_state_dict(path)
+    if kind == "tts":
+        return tc.convert_tts(sd, cfg.tts)
+    if kind == "hift":
+        return tc.convert_hift(sd, cfg.hift)
+    if kind == "flow_encoder":
+        return tc.convert_flow_encoder(sd, cfg.flow_encoder)
+    raise ValueError(kind)
+
+
+def main(argv=None, cfg=None, extractor_kw=None):
+    """extractor_kw: extra PromptExtractor arguments (e.g. the CAM++ and
+    tokenizer configs of reduced test models)."""
     parser = argparse.ArgumentParser(description="JyutVoice inference (PyTorch port)")
     parser.add_argument("--text", required=True)
     parser.add_argument("--lang", default="yue", choices=["yue", "zh", "en", "multilingual"])
     parser.add_argument("--phone", default=None,
                         help="explicit jyutping/pinyin (space separated)")
-    parser.add_argument("--ckpt", default=None, help="tts parameter tree (.npz)")
-    parser.add_argument("--hift", default=None, help="vocoder parameter tree (.npz)")
+    parser.add_argument("--ckpt", default=None, help="tts parameters (.npz/.ckpt/.pt)")
+    parser.add_argument("--hift", default=None, help="vocoder parameters (.npz/.ckpt/.pt)")
+    parser.add_argument("--flow-encoder", default=None,
+                        help="flow-encoder parameters (.npz/.ckpt/.pt)")
+    parser.add_argument("--campplus-onnx", default=None)
+    parser.add_argument("--tokenizer-onnx", default=None)
+    parser.add_argument("--tokenizer-torch", default=None,
+                        help="speech_tokenizer_v2 torch checkpoint")
+    parser.add_argument("--ref-audio", default=None, help="voice-cloning prompt (.wav)")
     parser.add_argument("--output", default="output.wav")
     parser.add_argument("--n-timesteps", type=int, default=10)
     parser.add_argument("--length-scale", type=float, default=0.9)
@@ -50,19 +93,39 @@ def main(argv=None, cfg=None):
     from jyutvoice_tpu_torch.config import JyutVoiceConfig
     from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
     from jyutvoice_tpu_torch.weights import random_init
-    from jyutvoice_tpu_torch.weights.from_jax import load_pytree_npz
 
     cfg = cfg or JyutVoiceConfig()
     if args.ckpt:
-        params_tts = load_pytree_npz(args.ckpt)
+        params_tts = load_params(args.ckpt, "tts", cfg)
     else:
         log.warning("no --ckpt given: using RANDOM tts weights")
         params_tts = random_init.init_tts_tree(cfg.tts, seed=args.seed)
     if args.hift:
-        params_hift = load_pytree_npz(args.hift)
+        params_hift = load_params(args.hift, "hift", cfg)
     else:
         log.warning("no --hift given: using RANDOM vocoder weights")
         params_hift = random_init.init_hift_tree(cfg.hift, seed=args.seed + 1)
+
+    spk_embed = prompt_feat = prompt_h = None
+    if args.ref_audio:
+        from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+
+        extractor = PromptExtractor(
+            flow_encoder_params=(load_params(args.flow_encoder, "flow_encoder", cfg)
+                                 if args.flow_encoder else None),
+            flow_encoder_cfg=cfg.flow_encoder,
+            campplus_onnx=args.campplus_onnx,
+            tokenizer_onnx=args.tokenizer_onnx,
+            tokenizer_torch=args.tokenizer_torch,
+            device=args.device,
+            **(extractor_kw or {}),
+        )
+        audio, sr = load_wav(args.ref_audio)
+        feats = extractor(audio, sr)
+        spk_embed, prompt_feat, prompt_h = feats.spk_embed, feats.prompt_feat, feats.prompt_h
+        if prompt_h is None:
+            log.warning("no speech tokenizer / flow encoder: cloning uses mel prompt only")
+            prompt_feat = None
 
     text = args.text
     if args.lang in ("yue", "zh") and args.phone is None:
@@ -72,7 +135,8 @@ def main(argv=None, cfg=None):
     # Synthesizer turns TF32 off on the GPU (parity with the f32 reference)
     synth = Synthesizer(cfg, params_tts, params_hift, device=args.device)
     result = synth.synthesize(
-        text, lang=args.lang, phone=args.phone, n_timesteps=args.n_timesteps,
+        text, lang=args.lang, phone=args.phone, spk_embed=spk_embed,
+        prompt_feat=prompt_feat, prompt_h=prompt_h, n_timesteps=args.n_timesteps,
         length_scale=args.length_scale,
     )
     save_wav(args.output, result.wav)

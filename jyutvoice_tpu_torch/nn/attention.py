@@ -1,6 +1,7 @@
 """Attention: masked SDPA, partial-RoPE self-attention (text encoder), the
-plain diffusers-style attention of the CFM estimator and the banded
-(chunk-local) attention of the long-form gate.
+plain diffusers-style attention of the CFM estimator, the banded
+(chunk-local) attention of the long-form gate and the ESPnet
+relative-position attention of the flow encoder.
 
 The counterpart of the JAX package's `nn/attention.py`. The modules take and
 return channels-last (B, T, C); heads are split internally.
@@ -223,3 +224,86 @@ class PlainMHA(nn.Module):
         else:
             raise ValueError(f"unknown attention backend {backend!r}")
         return self.o(out.view(b, t, -1))
+
+
+# ---------------------------------------------------------------------------
+# ESPnet relative-position attention (flow encoder)
+# ---------------------------------------------------------------------------
+
+
+def espnet_rel_pos_emb(t: int, d_model: int, device=None) -> Tensor:
+    """(2T - 1, d_model) f32 relative positional encodings: row k encodes
+    the relative distance T - 1 - k (sin on even features, cos on odd)."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(
+        torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+        * -(math.log(10000.0) / d_model)
+    )
+    pe_pos = torch.zeros(t, d_model, device=device)
+    pe_pos[:, 0::2] = torch.sin(pos * div)
+    pe_pos[:, 1::2] = torch.cos(pos * div)
+    pe_neg = torch.zeros(t, d_model, device=device)
+    pe_neg[:, 0::2] = torch.sin(-pos * div)
+    pe_neg[:, 1::2] = torch.cos(-pos * div)
+    return torch.cat([torch.flip(pe_pos, dims=(0,)), pe_neg[1:]], dim=0)
+
+
+def rel_shift_gather(matrix_bd: Tensor, t_q: int, t_k: int) -> Tensor:
+    """(B, H, Tq, W) -> (B, H, Tq, Tk) relative-position shift,
+    out[..., i, j] = in[..., i, Tq - 1 - i + j]: a flat reshape and one
+    slice (row i's outputs are the contiguous run flat[i (W - 1) + Tq - 1 + j])
+    while every row's band stays inside its own input row (Tk <= W - Tq + 1
+    and Tk <= W - 1), else a gather."""
+    b, h, tq, w = matrix_bd.shape
+    assert tq == t_q
+    if t_k > w - tq + 1 or t_k > w - 1:
+        i = torch.arange(t_q, device=matrix_bd.device)[:, None]
+        j = torch.arange(t_k, device=matrix_bd.device)[None, :]
+        idx = ((t_q - 1) - i + j).expand(b, h, t_q, t_k)
+        return torch.gather(matrix_bd, -1, idx)
+    flat = matrix_bd.reshape(b, h, tq * w)[..., t_q - 1 : t_q - 1 + tq * (w - 1)]
+    return flat.reshape(b, h, tq, w - 1)[..., :t_k]
+
+
+class RelMHA(nn.Module):
+    """Transformer-XL style relative-position self-attention (ESPnet
+    RelPositionMultiHeadedAttention): biased q/k/v/o, a bias-free position
+    projection `pos`, and the learned (H, D) biases pos_bias_u / pos_bias_v."""
+
+    def __init__(self, n_feat: int, n_heads: int):
+        super().__init__()
+        d_k = n_feat // n_heads
+        self.q = core.Linear(n_feat, n_feat)
+        self.k = core.Linear(n_feat, n_feat)
+        self.v = core.Linear(n_feat, n_feat)
+        self.o = core.Linear(n_feat, n_feat)
+        self.pos = core.Linear(n_feat, n_feat, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.empty(n_heads, d_k), requires_grad=False)
+        self.pos_bias_v = nn.Parameter(torch.empty(n_heads, d_k), requires_grad=False)
+
+    def forward(self, x: Tensor, pos_emb: Tensor, attn_bias: Optional[Tensor],
+                n_heads: int) -> Tensor:
+        return rel_mha(self, x, pos_emb, attn_bias, n_heads)
+
+
+def rel_mha(
+    attn: RelMHA, x: Tensor, pos_emb: Tensor, attn_bias: Optional[Tensor], n_heads: int
+) -> Tensor:
+    """x (B, T, C), pos_emb (2T - 1, C), attn_bias additive, broadcastable to
+    (B, H, T, T) -> (B, T, C)."""
+    _, t, c = x.shape
+    d_k = c // n_heads
+    q = split_heads(attn.q(x), n_heads)  # (B, H, T, D)
+    k = split_heads(attn.k(x), n_heads)
+    v = split_heads(attn.v(x), n_heads)
+    pm = split_heads(attn.pos(pos_emb[None]), n_heads)[0]  # (H, 2T - 1, D)
+    q_u = q + attn.pos_bias_u[None, :, None, :]
+    q_v = q + attn.pos_bias_v[None, :, None, :]
+    matrix_ac = torch.einsum("bhqd,bhkd->bhqk", q_u, k)
+    matrix_bd = torch.einsum("bhqd,hkd->bhqk", q_v, pm)  # (B, H, T, 2T - 1)
+    matrix_bd = rel_shift_gather(matrix_bd, t, t)
+    scores = (matrix_ac + matrix_bd) / math.sqrt(d_k)
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    probs = torch.softmax(scores, dim=-1)
+    return attn.o(merge_heads(torch.einsum("bhqk,bhkd->bhqd", probs, v)))

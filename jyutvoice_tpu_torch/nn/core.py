@@ -75,6 +75,60 @@ class ConvTranspose1d(nn.Module):
         )
 
 
+class Conv2d(nn.Module):
+    """2-D convolution over NHWC (B, H, W, C); weight (Cout, Cin, KH, KW)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(out_ch, in_ch, kernel_size, kernel_size), requires_grad=False
+        )
+        self.bias = (
+            nn.Parameter(torch.empty(out_ch), requires_grad=False) if bias else None
+        )
+
+    def forward(self, x: Tensor, stride=(1, 1), padding=(1, 1)) -> Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, stride, padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class DepthwiseConv1d(nn.Module):
+    """Depthwise (groups == channels) 1-D convolution over (B, T, C);
+    weight (C, K), bias (C,)."""
+
+    def __init__(self, channels: int, kernel_size: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, kernel_size), requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(channels), requires_grad=False)
+
+    def forward(self, x: Tensor, padding="valid") -> Tensor:
+        return conv1d(x, self.weight[:, None, :], self.bias, padding=padding,
+                      groups=self.weight.shape[0])
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode batch norm over the last (channel) axis, with running
+    statistics (torch BatchNorm.eval semantics); affine=False has no
+    weight and bias."""
+
+    def __init__(self, channels: int, affine: bool = True):
+        super().__init__()
+        self.running_mean = nn.Parameter(torch.empty(channels), requires_grad=False)
+        self.running_var = nn.Parameter(torch.empty(channels), requires_grad=False)
+        self.weight = (
+            nn.Parameter(torch.empty(channels), requires_grad=False) if affine else None
+        )
+        self.bias = (
+            nn.Parameter(torch.empty(channels), requires_grad=False) if affine else None
+        )
+
+    def forward(self, x: Tensor, eps: float = 1e-5) -> Tensor:
+        y = (x - self.running_mean) * torch.rsqrt(self.running_var + eps)
+        if self.weight is not None:
+            y = y * self.weight + self.bias
+        return y
+
+
 class LayerNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()

@@ -8,9 +8,15 @@ changes layouts, leaf module by leaf module:
   Linear           {"w": (Cin, Cout), "b"}   -> weight (Cout, Cin), bias
   Conv1d           {"w": (K, Cin, Cout), "b"} -> weight (Cout, Cin, K), bias
   ConvTranspose1d  {"w": (K, Cin, Cout), "b"} -> weight (Cin, Cout, K), bias
+  Conv2d           {"w": (KH, KW, Cin, Cout), "b"} -> weight (Cout, Cin, KH, KW), bias
+  DepthwiseConv1d  {"w": (K, C), "b"}         -> weight (C, K), bias
+  BatchNorm        {"mean", "var", "gamma", "beta"} -> running_mean,
+                   running_var, weight, bias (no gamma/beta: affine=False)
   LayerNorm        {"g", "b"}                -> weight, bias
   Embedding        {"w": (V, D)}             -> weight (V, D)
   ParameterList    [arrays]                  -> one parameter each
+  a module's own parameter (e.g. RelMHA.pos_bias_u, S3Tokenizer.pos)
+                   array under its name      -> that parameter
 
 It is strict both ways: a tree leaf that no parameter takes, a parameter that
 no leaf fills, or a shape that differs raises ValueError.
@@ -31,6 +37,10 @@ _LEAVES = {
     core.Linear: {"w": ("weight", (1, 0)), "b": ("bias", None)},
     core.Conv1d: {"w": ("weight", (2, 1, 0)), "b": ("bias", None)},
     core.ConvTranspose1d: {"w": ("weight", (1, 2, 0)), "b": ("bias", None)},
+    core.Conv2d: {"w": ("weight", (3, 2, 0, 1)), "b": ("bias", None)},
+    core.DepthwiseConv1d: {"w": ("weight", (1, 0)), "b": ("bias", None)},
+    core.BatchNorm: {"mean": ("running_mean", None), "var": ("running_var", None),
+                     "gamma": ("weight", None), "beta": ("bias", None)},
     core.LayerNorm: {"g": ("weight", None), "b": ("bias", None)},
     core.Embedding: {"w": ("weight", None)},
 }
@@ -77,14 +87,17 @@ def _load(module: nn.Module, node, path: str, filled: set) -> None:
             _load(m, v, f"{path}/{i}", filled)
         return
     children = dict(module.named_children())
+    own = dict(module.named_parameters(recurse=False))
     if not isinstance(node, dict):
         raise ValueError(f"{path}: expected a dict subtree")
-    extra = sorted(set(node) - set(children))
-    missing = sorted(set(children) - set(node))
+    extra = sorted(set(node) - set(children) - set(own))
+    missing = sorted((set(children) | set(own)) - set(node))
     if extra or missing:
         raise ValueError(
             f"{path or '<root>'}: tree keys not taken {extra}, modules not filled {missing}"
         )
+    for name, param in own.items():
+        _fill(param, node[name], f"{path}/{name}" if path else name, filled)
     for name, child in children.items():
         _load(child, node[name], f"{path}/{name}" if path else name, filled)
 

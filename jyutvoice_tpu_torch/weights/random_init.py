@@ -3,7 +3,10 @@
 `init_tts_tree` / `init_hift_tree` give trees with the same paths and shapes
 as the JAX package's `init_tts` / `init_hift` and the same distributions
 (torch's default Linear/Conv init, unit norms, unit snake alphas, a zero
-prenet projection), drawn from `numpy.random.default_rng(seed)`. They feed
+prenet projection), drawn from `numpy.random.default_rng(seed)`; so do
+`init_flow_encoder_tree`, `init_campplus_tree` and `init_s3_tree` for the
+prompt extractor's models (`init_flow_encoder`, `init_campplus`,
+`init_s3_tokenizer`; batch norms at identity running statistics). They feed
 `weights/from_jax.py` like any JAX tree, so a random-weight model goes
 through the same bridge as a trained one.
 """
@@ -17,10 +20,13 @@ import numpy as np
 from jyutvoice_tpu_torch.config import (
     DurationPredictorConfig,
     EstimatorConfig,
+    FlowEncoderConfig,
     HiFTConfig,
     TextEncoderConfig,
     TTSConfig,
 )
+from jyutvoice_tpu_torch.models.campplus import CampPlusConfig
+from jyutvoice_tpu_torch.models.s3_tokenizer import S3TokenizerConfig, sinusoids
 
 
 class _Init:
@@ -56,6 +62,17 @@ class _Init:
 
     def embedding(self, n, dim):
         return {"w": (self.rng.standard_normal((n, dim)) * dim**-0.5).astype(np.float32)}
+
+    def conv2d(self, in_ch, out_ch, k):
+        return {"w": self.uniform((k, k, in_ch, out_ch), 1.0 / math.sqrt(in_ch * k * k))}
+
+    @staticmethod
+    def batch_norm(ch, affine=True):
+        p = {"mean": np.zeros((ch,), np.float32), "var": np.ones((ch,), np.float32)}
+        if affine:
+            p["gamma"] = np.ones((ch,), np.float32)
+            p["beta"] = np.zeros((ch,), np.float32)
+        return p
 
 
 def _text_encoder(ini: _Init, cfg: TextEncoderConfig):
@@ -210,4 +227,140 @@ def init_hift_tree(cfg: HiFTConfig, seed: int = 1):
             for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
         ],
         "conv_post": ini.conv(last, n_fft_src, 7),
+    }
+
+
+def init_flow_encoder_tree(cfg: FlowEncoderConfig, seed: int = 2):
+    """Random flow-encoder tree (the JAX package's `init_flow_encoder`)."""
+    ini = _Init(seed)
+    d, heads = cfg.output_size, cfg.attention_heads
+    d_k = d // heads
+
+    def ff():
+        return {"w1": ini.linear(d, cfg.linear_units), "w2": ini.linear(cfg.linear_units, d)}
+
+    def layer():
+        xavier = math.sqrt(6.0 / (heads + d_k))
+        p = {
+            "attn": {
+                **{n: ini.linear(d, d) for n in ("q", "k", "v", "o")},
+                "pos": {"w": ini.uniform((d, d), 1.0 / math.sqrt(d))},
+                "pos_bias_u": ini.uniform((heads, d_k), xavier),
+                "pos_bias_v": ini.uniform((heads, d_k), xavier),
+            },
+            "norm_mha": ini.norm(d),
+            "ff": ff(),
+            "norm_ff": ini.norm(d),
+        }
+        if cfg.macaron_style:
+            p["ff_macaron"] = ff()
+            p["norm_ff_macaron"] = ini.norm(d)
+        if cfg.use_cnn_module:
+            k = cfg.cnn_module_kernel
+            p["conv"] = {
+                "pw1": ini.linear(d, 2 * d),
+                "dw": {"w": ini.uniform((k, d), 1.0 / math.sqrt(k)),
+                       "b": ini.uniform((d,), 1.0 / math.sqrt(k))},
+                "norm": ini.batch_norm(d) if cfg.cnn_module_norm == "batch_norm" else ini.norm(d),
+                "pw2": ini.linear(d, d),
+            }
+            p["norm_conv"] = ini.norm(d)
+            p["norm_final"] = ini.norm(d)
+        return p
+
+    return {
+        "input_embedding": ini.embedding(cfg.vocab_size, cfg.input_size),
+        "embed": {"linear": ini.linear(cfg.input_size, d), "norm": ini.norm(d)},
+        "pre_lookahead": {
+            "conv1": ini.conv(d, d, cfg.pre_lookahead_len + 1),
+            "conv2": ini.conv(d, d, 3),
+        },
+        "encoders": [layer() for _ in range(cfg.num_blocks)],
+        "up_conv": ini.conv(d, d, cfg.upsample_stride * 2 + 1),
+        "up_embed": {"linear": ini.linear(cfg.input_size, d), "norm": ini.norm(d)},
+        "up_encoders": [layer() for _ in range(cfg.num_up_blocks)],
+        "after_norm": ini.norm(d),
+        "encoder_proj": ini.linear(d, cfg.proj_size),
+    }
+
+
+def init_campplus_tree(cfg: CampPlusConfig = CampPlusConfig(), seed: int = 3):
+    """Random CAM++ tree (the JAX package's `init_campplus`)."""
+    ini = _Init(seed)
+    m = cfg.m_channels
+
+    def res_block(stride):
+        p = {"conv1": ini.conv2d(m, m, 3), "bn1": ini.batch_norm(m),
+             "conv2": ini.conv2d(m, m, 3), "bn2": ini.batch_norm(m)}
+        if stride != 1:
+            p["sc_conv"] = ini.conv2d(m, m, 1)
+            p["sc_bn"] = ini.batch_norm(m)
+        return p
+
+    def bias_free(in_dim, out_dim):
+        return {"w": ini.uniform((in_dim, out_dim), 1.0 / math.sqrt(in_dim))}
+
+    tree = {
+        "head": {
+            "conv1": ini.conv2d(1, m, 3),
+            "bn1": ini.batch_norm(m),
+            "layer1": [res_block(2), res_block(1)],
+            "layer2": [res_block(2), res_block(1)],
+            "conv2": ini.conv2d(m, m, 3),
+            "bn2": ini.batch_norm(m),
+        },
+        "tdnn": {
+            "conv": {"w": ini.uniform((5, cfg.fcm_out_channels, cfg.init_channels),
+                                      1.0 / math.sqrt(5 * cfg.fcm_out_channels))},
+            "bn": ini.batch_norm(cfg.init_channels),
+        },
+        "blocks": [],
+    }
+    ch, bn_ch = cfg.init_channels, cfg.bn_size * cfg.growth_rate
+    for n_layers, k in zip(cfg.num_layers, cfg.kernel_sizes):
+        layers = []
+        for j in range(n_layers):
+            in_ch = ch + j * cfg.growth_rate
+            layers.append({
+                "bn1": ini.batch_norm(in_ch),
+                "linear1": bias_free(in_ch, bn_ch),
+                "bn2": ini.batch_norm(bn_ch),
+                "cam": {
+                    "local": {"w": ini.uniform((k, bn_ch, cfg.growth_rate),
+                                               1.0 / math.sqrt(k * bn_ch))},
+                    "lin1": ini.linear(bn_ch, bn_ch // 2),
+                    "lin2": ini.linear(bn_ch // 2, cfg.growth_rate),
+                },
+            })
+        ch += n_layers * cfg.growth_rate
+        tree["blocks"].append({"layers": layers, "transit": {
+            "bn": ini.batch_norm(ch), "linear": bias_free(ch, ch // 2)}})
+        ch //= 2
+    tree["out_bn"] = ini.batch_norm(ch)
+    tree["dense"] = {"linear": bias_free(ch * 2, cfg.embedding_size),
+                     "bn": ini.batch_norm(cfg.embedding_size, affine=False)}
+    return tree
+
+
+def init_s3_tree(cfg: S3TokenizerConfig = S3TokenizerConfig(), seed: int = 4):
+    """Random S3 tokenizer tree (the JAX package's `init_s3_tokenizer`)."""
+    ini = _Init(seed)
+    d = cfg.n_audio_state
+
+    def block():
+        return {
+            "attn": {"q": ini.linear(d, d), "k": ini.linear(d, d, bias=False),
+                     "v": ini.linear(d, d), "out": ini.linear(d, d)},
+            "attn_ln": ini.norm(d),
+            "mlp1": ini.linear(d, d * 4),
+            "mlp2": ini.linear(d * 4, d),
+            "mlp_ln": ini.norm(d),
+        }
+
+    return {
+        "conv1": ini.conv(cfg.n_mels, d, 3),
+        "conv2": ini.conv(d, d, 3),
+        "pos": sinusoids(cfg.n_audio_ctx, d),
+        "blocks": [block() for _ in range(cfg.n_audio_layer)],
+        "fsq": ini.linear(d, cfg.n_fsq_dims),
     }

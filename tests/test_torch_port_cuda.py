@@ -8,7 +8,10 @@ on valid rows, ResBlock stage atol 2e-5 / rtol 1e-4; kernel 3 (stock flash)
 atol 5e-3 / rtol 1e-2 on every row, as in test_torch_port_longform.py;
 kernels 4 and 5 (its backward) max |err| / max |ref| <= 1e-2 for each of dq,
 dk and dv on every row (TF32 products, f32 accumulation); their operand
-preparation equal to its plain version (lse2 to float rounding).
+preparation equal to its plain version (lse2 to float rounding). The
+voice-cloning extractor at full width on the card against the CPU: the
+24 kHz mel energies atol 1e-5 / rtol 1e-3, spk_embed and prompt_h
+max |err| / max |ref| <= 1e-2, at least 90 % of the speech tokens equal.
 """
 
 import pytest
@@ -388,3 +391,75 @@ def test_small_training_step_launch_counts(cuda):
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     for n, p in model.decoder.named_parameters():
         assert torch.equal(p, decoder[n]), n
+
+
+def _cloning_extractors(device):
+    """Full-width PromptExtractors (seeded random flow-encoder, CAM++ and S3
+    trees) on `device` and on the CPU."""
+    from jyutvoice_tpu_torch.config import FlowEncoderConfig
+    from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+    from jyutvoice_tpu_torch.weights import random_init
+
+    trees = dict(flow_encoder_params=random_init.init_flow_encoder_tree(FlowEncoderConfig()),
+                 campplus_params=random_init.init_campplus_tree(),
+                 tokenizer_params=random_init.init_s3_tree())
+    return PromptExtractor(device=device, **trees), PromptExtractor(device="cpu", **trees)
+
+
+def _voiced(seconds, sr):
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(140 + 40 * np.sin(2 * np.pi * 0.5 * t)) / sr
+    x = sum(np.sin(k * phase) / k for k in range(1, 10)) * (0.6 + 0.4 * np.sin(6 * t))
+    return (0.1 * x).astype(np.float32)
+
+
+def _rel(a, b):
+    return float(abs(a - b).max() / abs(b).max())
+
+
+def _assert_mel_close(a, b):
+    """Log-mels compared as mel energies: |mel - ref| <= 1e-5 (the log's
+    clamp floor) + 1e-3 ref. Near the floor the log amplifies the f32 DFT's
+    rounding (a 3e-6 difference at mel 1e-4 is 0.03 in the log)."""
+    import numpy as np
+
+    assert a.shape == b.shape
+    np.testing.assert_allclose(np.exp(a.astype(np.float64)), np.exp(b.astype(np.float64)),
+                               atol=1e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("sr", [24000, 16000, 44100])
+def test_prompt_extractor_on_card_matches_cpu(cuda, sr):
+    """Card against CPU at full width: the 24 kHz mel energies within 1e-5 +
+    1e-3 of the CPU's, spk_embed and prompt_h (the flow encoder on the
+    card's tokens, both sides) max |err| / max |ref| <= 1e-2, at least 90 %
+    of the tokens equal; the extraction launches no kernel."""
+    from jyutvoice_tpu_torch import kernels
+
+    card, cpu = _cloning_extractors(cuda)
+    audio = _voiced(3.0, sr)
+    kernels.reset_launch_counts()
+    f = card(audio, sr)
+    assert not any(kernels.LAUNCHES.values())
+    g = cpu(audio, sr)
+    assert f.prompt_feat.shape == g.prompt_feat.shape == f.prompt_h.shape
+    _assert_mel_close(f.prompt_feat, g.prompt_feat)
+    assert _rel(f.spk_embed, g.spk_embed) <= 1e-2
+    assert (f.speech_tokens == g.speech_tokens).mean() >= 0.9
+    assert _rel(f.prompt_h, cpu._encode_tokens(f.speech_tokens)[: len(f.prompt_h)]) <= 1e-2
+
+
+def test_extract_batch_device_dsp_on_card_matches_rows(cuda):
+    card, _ = _cloning_extractors(cuda)
+    rows = [(_voiced(3.0, 24000), 24000), (_voiced(1.7, 16000), 16000),
+            (_voiced(2.3, 44100), 44100), (_voiced(0.9, 24000), 24000)]
+    batch = card.extract_batch([a for a, _ in rows], [sr for _, sr in rows], device_dsp=True)
+    for (audio, sr), b in zip(rows, batch):
+        one = card(audio, sr)
+        assert b.prompt_feat.shape == one.prompt_feat.shape
+        _assert_mel_close(b.prompt_feat, one.prompt_feat)
+        assert _rel(b.spk_embed, one.spk_embed) <= 1e-2
+        assert (b.speech_tokens == one.speech_tokens).mean() >= 0.9
+        assert _rel(b.prompt_h, card._encode_tokens(b.speech_tokens)[: len(b.prompt_h)]) <= 1e-2

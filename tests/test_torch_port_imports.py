@@ -1,7 +1,8 @@
 """The port stands alone: no module of `jyutvoice_tpu_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package or names a path into it, the
-port reads its own copy of the LTS rule table, and it synthesizes and trains
-in a process where JAX and the JAX package are import-blocked."""
+port reads its own copy of the LTS rule table (and of the modules it copies
+byte for byte), and it synthesizes, trains and clones a voice in a process
+where JAX and the JAX package are import-blocked."""
 
 import ast
 import os
@@ -155,3 +156,50 @@ def test_port_trains_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_TRAINS_STANDALONE_OK" in proc.stdout
+
+
+@pytest.mark.parametrize("rel", ["audio/resample.py", "weights/onnx_reader.py"])
+def test_byte_for_byte_copies(rel):
+    """Modules the port copies unchanged from the JAX package (numpy and the
+    standard library only) stay identical to their originals."""
+    with open(os.path.join(PORT, rel), "rb") as a, \
+            open(os.path.join(REPO, "jyutvoice_tpu", rel), "rb") as b:
+        assert a.read() == b.read()
+
+
+_CLONE_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+from jyutvoice_tpu_torch.config import FlowEncoderConfig
+from jyutvoice_tpu_torch.models.campplus import CampPlusConfig
+from jyutvoice_tpu_torch.models.s3_tokenizer import S3TokenizerConfig
+from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+from jyutvoice_tpu_torch.weights import random_init
+
+fe = FlowEncoderConfig(input_size=64, output_size=64, attention_heads=2, linear_units=128,
+                       num_blocks=2, num_up_blocks=1)
+cp = CampPlusConfig(num_layers=(2, 2, 2))
+s3 = S3TokenizerConfig(n_audio_ctx=256, n_audio_state=64, n_audio_head=4, n_audio_layer=2)
+ex = PromptExtractor(
+    flow_encoder_params=random_init.init_flow_encoder_tree(fe), flow_encoder_cfg=fe,
+    campplus_params=random_init.init_campplus_tree(cp), campplus_cfg=cp,
+    tokenizer_params=random_init.init_s3_tree(s3), tokenizer_cfg=s3, device="cpu")
+t = np.arange(22050) / 22050
+f = ex((0.3 * np.sin(2 * np.pi * 150 * t)).astype(np.float32), 22050)
+assert f.prompt_h.shape == f.prompt_feat.shape and f.spk_embed.shape == (192,)
+s = Synthesizer(cfg, init_tts_tree(cfg.tts), init_hift_tree(cfg.hift), device="cpu")
+r = s.synthesize("佢", lang="yue", phone="keoi5", n_timesteps=2, spk_embed=f.spk_embed,
+                 prompt_feat=f.prompt_feat, prompt_h=f.prompt_h)
+assert r.wav.shape == (r.mel_frames * 480,) and np.isfinite(r.wav).all()
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_CLONES_STANDALONE_OK", f.prompt_feat.shape[0])
+"""
+
+
+def test_port_clones_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLONE_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_CLONES_STANDALONE_OK" in proc.stdout
