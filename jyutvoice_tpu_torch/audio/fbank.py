@@ -16,7 +16,7 @@ import functools
 import numpy as np
 import torch
 
-from jyutvoice_tpu_torch.audio.mel import CONSTANTS
+from jyutvoice_tpu_torch.audio.mel import device_constant
 from jyutvoice_tpu_torch.nn.core import frame_signal
 
 Tensor = torch.Tensor
@@ -60,40 +60,27 @@ def _povey_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(a * np.arange(n))) ** 0.85
 
 
-def kaldi_fbank(
-    waveform: np.ndarray,
-    num_mel_bins: int = 80,
-    sample_frequency: float = 16000.0,
-    frame_length_ms: float = 25.0,
-    frame_shift_ms: float = 10.0,
-    preemphasis_coefficient: float = 0.97,
-    remove_dc_offset: bool = True,
-) -> np.ndarray:
-    """(num_samples,) float waveform in [-1, 1] -> (T, num_mel_bins) log-mel,
-    on the host in f64 (the reference feeds the float waveform unscaled)."""
+def kaldi_fbank(waveform: np.ndarray, num_mel_bins: int = 80) -> np.ndarray:
+    """(num_samples,) 16 kHz float waveform in [-1, 1] -> (T, num_mel_bins)
+    log-mel, on the host in f64 (the reference feeds the float waveform
+    unscaled)."""
     wav = np.asarray(waveform, dtype=np.float64)
-    win = int(sample_frequency * frame_length_ms / 1000)  # 400
-    shift = int(sample_frequency * frame_shift_ms / 1000)  # 160
+    win, shift = 400, 160  # 25 ms frames, 10 ms shift
     padded = _next_pow2(win)  # 512
     if len(wav) < win:
         return np.zeros((0, num_mel_bins), np.float32)
     n_frames = 1 + (len(wav) - win) // shift
     idx = np.arange(n_frames)[:, None] * shift + np.arange(win)[None, :]
     frames = wav[idx]
-    if remove_dc_offset:
-        frames = frames - frames.mean(axis=1, keepdims=True)
-    if preemphasis_coefficient != 0.0:
-        first = frames[:, :1]
-        frames = np.concatenate(
-            [first - preemphasis_coefficient * first,
-             frames[:, 1:] - preemphasis_coefficient * frames[:, :-1]],
-            axis=1,
-        )
+    frames = frames - frames.mean(axis=1, keepdims=True)  # DC offset
+    first = frames[:, :1]  # preemphasis 0.97, the first sample against itself
+    frames = np.concatenate([first - 0.97 * first, frames[:, 1:] - 0.97 * frames[:, :-1]],
+                            axis=1)
     frames = frames * _povey_window(win)[None, :]
     frames = np.pad(frames, ((0, 0), (0, padded - win)))
     spec = np.fft.rfft(frames, axis=1)
     power = (spec.real**2 + spec.imag**2)[:, : padded // 2]
-    mel = power @ _kaldi_mel_banks(num_mel_bins, padded, sample_frequency).T
+    mel = power @ _kaldi_mel_banks(num_mel_bins, padded, 16000.0).T
     return np.log(np.maximum(mel, _LOG_FLOOR)).astype(np.float32)
 
 
@@ -119,13 +106,13 @@ def kaldi_fbank_batch(y: Tensor, wav_len: Tensor, num_mel_bins: int = 80):
     prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
     frames = frames - 0.97 * prev
     window = _povey_window(win).astype(np.float32)
-    frames = frames * CONSTANTS.get(("povey", win), window, y.device)
+    frames = frames * device_constant(("povey", win), window, y.device)
     cos_m, sin_m = _fbank_dft(win, padded)
-    re = frames @ CONSTANTS.get(("fbank_cos", win, padded), cos_m, y.device)
-    im = frames @ CONSTANTS.get(("fbank_sin", win, padded), sin_m, y.device)
+    re = frames @ device_constant(("fbank_cos", win, padded), cos_m, y.device)
+    im = frames @ device_constant(("fbank_sin", win, padded), sin_m, y.device)
     power = re * re + im * im
     banks = _kaldi_mel_banks(num_mel_bins, padded, 16000.0).T
-    mel = power @ CONSTANTS.get(("kaldi_banks", num_mel_bins, padded), banks, y.device)
+    mel = power @ device_constant(("kaldi_banks", num_mel_bins, padded), banks, y.device)
     feat = torch.log(torch.clamp(mel, min=_LOG_FLOOR))
     t_len = torch.where(wav_len >= win, 1 + torch.div(wav_len - win, shift, rounding_mode="floor"),
                         torch.zeros_like(wav_len))

@@ -88,30 +88,23 @@ def _windowed_dft(n_fft: int, win_length: int):
     return cos_m, sin_m
 
 
-class _DeviceCache:
-    """numpy constants moved to a device once per device."""
-
-    def __init__(self):
-        self._by_device: Dict[tuple, Tensor] = {}
-
-    def get(self, key, array: np.ndarray, device) -> Tensor:
-        k = (key, str(device))
-        t = self._by_device.get(k)
-        if t is None:
-            t = torch.from_numpy(np.ascontiguousarray(array)).to(device)
-            self._by_device[k] = t
-        return t
+_CONSTANTS: Dict[tuple, Tensor] = {}
 
 
-CONSTANTS = _DeviceCache()
+def device_constant(key, array: np.ndarray, device) -> Tensor:
+    """A numpy constant on `device`, copied there once per device."""
+    k = (key, str(device))
+    if k not in _CONSTANTS:
+        _CONSTANTS[k] = torch.from_numpy(np.ascontiguousarray(array)).to(device)
+    return _CONSTANTS[k]
 
 
 def stft_magnitude(y: Tensor, n_fft: int, hop: int, win_length: int) -> Tensor:
     """(B, L) -> (B, T, n_bins) magnitude, torch.stft(center=False) semantics."""
     frames = frame_signal(y, n_fft, hop)
     cos_m, sin_m = _windowed_dft(n_fft, win_length)
-    re = frames @ CONSTANTS.get(("dft_cos", n_fft, win_length), cos_m, y.device)
-    im = frames @ CONSTANTS.get(("dft_sin", n_fft, win_length), sin_m, y.device)
+    re = frames @ device_constant(("dft_cos", n_fft, win_length), cos_m, y.device)
+    im = frames @ device_constant(("dft_sin", n_fft, win_length), sin_m, y.device)
     return torch.sqrt(re * re + im * im + 1e-9)
 
 
@@ -146,8 +139,5 @@ class MelSpec:
         calls this on the bucketed buffer; rows are exact up to their own
         frame count."""
         spec = stft_magnitude(y, self.n_fft, self.hop, self.win_length)
-        mel = spec @ CONSTANTS.get(self._key, self._weights, y.device)
+        mel = spec @ device_constant(self._key, self._weights, y.device)
         return torch.log(torch.clamp(mel, min=1e-5))
-
-    def num_frames(self, num_samples: int) -> int:
-        return num_samples // self.hop

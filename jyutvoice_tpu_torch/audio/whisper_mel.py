@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from jyutvoice_tpu_torch.audio.mel import CONSTANTS, mel_filterbank
+from jyutvoice_tpu_torch.audio.mel import device_constant, mel_filterbank
 from jyutvoice_tpu_torch.nn.core import frame_signal
 
 Tensor = torch.Tensor
@@ -63,11 +63,11 @@ def whisper_log_mel_batch(y_padded: Tensor, wav_len: Tensor, n_mels: int = 128,
     frames = frame_signal(y_padded, n_fft, hop)  # (B, T, n_fft)
     cos_m, sin_m = _whisper_dft(n_fft)
     dev = y_padded.device
-    re = frames @ CONSTANTS.get(("whisper_cos", n_fft), cos_m, dev)
-    im = frames @ CONSTANTS.get(("whisper_sin", n_fft), sin_m, dev)
+    re = frames @ device_constant(("whisper_cos", n_fft), cos_m, dev)
+    im = frames @ device_constant(("whisper_sin", n_fft), sin_m, dev)
     power = re * re + im * im
     fb = mel_filterbank(16000, n_fft, n_mels, 0.0, None).T
-    mel = power @ CONSTANTS.get(("whisper_mel", n_fft, n_mels), fb, dev)
+    mel = power @ device_constant(("whisper_mel", n_fft, n_mels), fb, dev)
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     t_len = torch.div(wav_len, hop, rounding_mode="floor").to(torch.int32)
     valid = torch.arange(log_spec.shape[1], device=dev)[None, :] < t_len[:, None]

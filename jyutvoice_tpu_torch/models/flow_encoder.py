@@ -14,7 +14,7 @@ masks throughout; parameter names follow the JAX tree
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 from torch import nn
@@ -53,7 +53,7 @@ def apply_conv_module(conv: ConvModule, x: Tensor, mask_pad: Tensor, kernel: int
         pad = "same_torch"
     a, g = conv.pw1(x).chunk(2, dim=-1)
     h = conv.dw(a * torch.sigmoid(g), padding=pad)  # GLU over the channels
-    h = conv.norm(h) if isinstance(conv.norm, core.BatchNorm) else conv.norm(h, eps=1e-5)
+    h = conv.norm(h)  # batch norm or LayerNorm, eps 1e-5
     h = conv.pw2(core.silu(h))
     return h * mask_pad.to(h.dtype)[..., None]
 
@@ -90,16 +90,13 @@ class ConformerLayer(nn.Module):
 
 
 def apply_conformer_layer(layer: ConformerLayer, x: Tensor, pos_emb: Tensor,
-                          attn_bias: Tensor, cfg: FlowEncoderConfig,
-                          mask_pad: Optional[Tensor] = None) -> Tensor:
+                          attn_bias: Tensor, cfg: FlowEncoderConfig, mask_pad: Tensor) -> Tensor:
     macaron = hasattr(layer, "ff_macaron")
     ff_scale = 0.5 if macaron else 1.0
     if macaron:
         x = x + ff_scale * layer.ff_macaron(layer.norm_ff_macaron(x, eps=1e-12))
     x = x + layer.attn(layer.norm_mha(x, eps=1e-12), pos_emb, attn_bias, cfg.attention_heads)
     if hasattr(layer, "conv"):
-        if mask_pad is None:
-            mask_pad = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
         x = x + apply_conv_module(layer.conv, layer.norm_conv(x, eps=1e-12), mask_pad,
                                   cfg.cnn_module_kernel, cfg.causal_cnn)
     x = x + ff_scale * layer.ff(layer.norm_ff(x, eps=1e-12))
@@ -118,7 +115,7 @@ class Embed(nn.Module):
 
     def forward(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         """-> (LN(linear(x)) * sqrt(d), (2T - 1, d) positions)."""
-        h = self.norm(self.linear(x), eps=1e-5)
+        h = self.norm(self.linear(x))
         d = h.shape[-1]
         return h * math.sqrt(d), espnet_rel_pos_emb(h.shape[1], d, device=h.device)
 
@@ -195,7 +192,7 @@ def apply_flow_encoder(
     attn_bias = core.mask_to_bias(attn_mask)[:, None, :, :]
     h = model.pre_lookahead(h, cfg.pre_lookahead_len)
     for layer in model.encoders:
-        h = apply_conformer_layer(layer, h, pos_emb, attn_bias, cfg, mask_pad=mask)
+        h = apply_conformer_layer(layer, h, pos_emb, attn_bias, cfg, mask)
 
     if exact_pad:
         h = h * mask[..., None].to(h.dtype)
@@ -208,6 +205,6 @@ def apply_flow_encoder(
     )
     attn_bias_up = core.mask_to_bias(attn_mask_up)[:, None, :, :]
     for layer in model.up_encoders:
-        h = apply_conformer_layer(layer, h, pos_emb_up, attn_bias_up, cfg, mask_pad=mask_up)
-    h = model.encoder_proj(model.after_norm(h, eps=1e-5))
+        h = apply_conformer_layer(layer, h, pos_emb_up, attn_bias_up, cfg, mask_up)
+    h = model.encoder_proj(model.after_norm(h))
     return h, up_lengths

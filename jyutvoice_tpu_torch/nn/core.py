@@ -122,8 +122,8 @@ class BatchNorm(nn.Module):
             nn.Parameter(torch.empty(channels), requires_grad=False) if affine else None
         )
 
-    def forward(self, x: Tensor, eps: float = 1e-5) -> Tensor:
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + eps)
+    def forward(self, x: Tensor) -> Tensor:
+        y = (x - self.running_mean) * torch.rsqrt(self.running_var + 1e-5)
         if self.weight is not None:
             y = y * self.weight + self.bias
         return y

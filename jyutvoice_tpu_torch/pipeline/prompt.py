@@ -14,9 +14,10 @@ the kaldi fbank and whisper mel unless `device_dsp` is on, run on the host,
 as in the JAX package. Lengths are padded to geometric buckets and every
 model masks its padding, so a bucketed run equals the exact-length one.
 Without a CAM++ or tokenizer artifact the extractor returns a zero speaker
-embedding and no tokens (no prompt_h), as the JAX package does. The
-onnxruntime backends and `streaming_encoder=True` (the KV-cached streaming
-encoder) are not ported.
+embedding and no tokens (no prompt_h), as the JAX package does. Not
+ported: the onnxruntime backends (an artifact the native models cannot
+read is reported and left unused) and the JAX package's
+`streaming_encoder=True` (the KV-cached streaming encoder).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 
 _log = logging.getLogger(__name__)
 
-ORT_NOT_PORTED = "the onnxruntime backend is not ported (onnxruntime is not installed)"
+ORT_NOT_PORTED = "the onnxruntime backend is not ported"
 
 
 def _time_bucket(n: int, base: int = 128, growth: float = 1.5) -> int:
@@ -69,31 +70,23 @@ def _prepare_device(device) -> torch.device:
 class CampPlusEmbedder:
     """192-d speaker embedding from 16 kHz audio with the native CAM++
     (`models/campplus.py`), its weights read from campplus.onnx by the
-    stdlib reader or given as a JAX-layout tree (`params`). backend: "auto"
-    or "torch" (native; "torch" raises if the conversion fails, "auto" warns)
-    or "none"."""
+    stdlib reader or given as a JAX-layout tree (`params`)."""
 
-    def __init__(self, onnx_path: Optional[str] = None, backend: str = "auto",
-                 params: Optional[dict] = None, cfg: Optional[CampPlusConfig] = None,
-                 device="cuda"):
-        if backend == "ort":
-            raise NotImplementedError(ORT_NOT_PORTED)
+    def __init__(self, onnx_path: Optional[str] = None, params: Optional[dict] = None,
+                 cfg: Optional[CampPlusConfig] = None, device="cuda"):
         self.cfg = cfg or CampPlusConfig()
         self.device = _prepare_device(device)
-        self.params = params
-        if onnx_path and self.params is None and backend in ("auto", "torch"):
+        if onnx_path and params is None:
             try:
                 from jyutvoice_tpu_torch.weights.campplus_convert import campplus_from_onnx
 
-                self.params = campplus_from_onnx(onnx_path, self.cfg)
+                params = campplus_from_onnx(onnx_path, self.cfg)
                 _log.info("campplus: native backend (weights from %s)", onnx_path)
             except Exception as e:
-                if backend == "torch":
-                    raise
                 _log.warning("campplus native conversion failed (%s); %s", e, ORT_NOT_PORTED)
         self.model = None
-        if self.params is not None:
-            self.model = build_campplus(self.params, self.cfg).to(self.device)
+        if params is not None:
+            self.model = build_campplus(params, self.cfg).to(self.device)
 
     @torch.inference_mode()
     def __call__(self, audio16k: np.ndarray) -> np.ndarray:
@@ -122,19 +115,18 @@ class SpeechTokenizer:
 
         self.cfg = cfg or S3TokenizerConfig()
         self.device = _prepare_device(device)
-        self.params = params
-        if torch_path and self.params is None:
-            self.params = s3_convert.s3_from_torch(torch_path, self.cfg)
+        if torch_path and params is None:
+            params = s3_convert.s3_from_torch(torch_path, self.cfg)
             _log.info("speech tokenizer: native backend (%s)", torch_path)
-        if onnx_path and self.params is None:
+        if onnx_path and params is None:
             try:
-                self.params = s3_convert.s3_from_onnx(onnx_path, self.cfg)
+                params = s3_convert.s3_from_onnx(onnx_path, self.cfg)
                 _log.info("speech tokenizer: native backend (%s)", onnx_path)
             except Exception as e:
                 _log.warning("speech tokenizer onnx unusable (%s); %s", e, ORT_NOT_PORTED)
         self.model = None
-        if self.params is not None:
-            self.model = load_jax_params(S3Tokenizer(self.cfg), self.params).to(self.device).eval()
+        if params is not None:
+            self.model = load_jax_params(S3Tokenizer(self.cfg), params).to(self.device).eval()
 
     @torch.inference_mode()
     def __call__(self, audio16k: np.ndarray) -> Optional[np.ndarray]:
@@ -148,11 +140,6 @@ class SpeechTokenizer:
                                     torch.tensor([t], device=self.device))
         n_valid = int(out_len(np.asarray([t]))[0])
         return tokens[0, :n_valid].cpu().numpy().astype(np.int32)
-
-
-def resample(audio: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
-    """torchaudio.transforms.Resample's windowed-sinc resample, on the host."""
-    return resample_sinc(audio, sr_in, sr_out)
 
 
 @dataclasses.dataclass
@@ -177,7 +164,6 @@ class PromptExtractor:
         campplus_onnx: Optional[str] = None,
         tokenizer_onnx: Optional[str] = None,
         tokenizer_torch: Optional[str] = None,
-        streaming_encoder: bool = False,
         device_dsp: bool = False,
         device="cuda",
         campplus_params: Optional[dict] = None,
@@ -185,11 +171,6 @@ class PromptExtractor:
         tokenizer_params: Optional[dict] = None,
         tokenizer_cfg: Optional[S3TokenizerConfig] = None,
     ):
-        if streaming_encoder:
-            raise NotImplementedError(
-                "streaming_encoder=True needs the KV-cached streaming token encoder, "
-                "which is not ported yet"
-            )
         self.device = _prepare_device(device)
         self.mel = MelSpec()
         # device_dsp: the kaldi fbank and whisper mel run in the batched
@@ -200,7 +181,6 @@ class PromptExtractor:
         self.tokenizer = SpeechTokenizer(tokenizer_onnx, torch_path=tokenizer_torch,
                                          params=tokenizer_params, cfg=tokenizer_cfg,
                                          device=self.device)
-        self.flow_encoder_params = flow_encoder_params
         self.flow_encoder_cfg = flow_encoder_cfg or FlowEncoderConfig()
         self.flow_encoder = None
         if flow_encoder_params is not None:
@@ -222,12 +202,12 @@ class PromptExtractor:
     def _extract_single(self, audio: np.ndarray, sr: int) -> PromptFeatures:
         """Per-component extraction, one model at a time: the independent
         reference that the batched path is tested against."""
-        wav24 = resample(audio, sr, 24000)
+        wav24 = resample_sinc(audio, sr, 24000)
         pad = (self.mel.n_fft - self.mel.hop) // 2
         if len(wav24) // self.mel.hop < 1 or len(wav24) <= pad:
             # the reference's torch.stft(center=False) refuses sub-frame clips too
             raise ValueError(f"audio too short for mel frontend ({len(wav24)} samples at 24 kHz)")
-        wav16 = resample(audio, sr, 16000)
+        wav16 = resample_sinc(audio, sr, 16000)
         prompt_feat = self.mel(self._to_device(wav24[None]))[0].cpu().numpy()  # (T, 80)
         spk = self.embedder(wav16)
         tokens = self.tokenizer(wav16)
@@ -299,22 +279,20 @@ class PromptExtractor:
             device_dsp = self.device_dsp
         hop, n_fft = self.mel.hop, self.mel.n_fft
         pad = (n_fft - hop) // 2
-        # getattr: a component may be stubbed with a bare callable, which
-        # runs per row on the host
-        with_spk = getattr(self.embedder, "model", None) is not None
-        with_tok = (getattr(self.tokenizer, "model", None) is not None
-                    and self.flow_encoder is not None)
+        # a component without a model runs per row (a zero embedding, no tokens)
+        with_spk = self.embedder.model is not None
+        with_tok = self.tokenizer.model is not None and self.flow_encoder is not None
 
         results: list = [None] * len(audios)
         prepped = []  # (row, reflect-padded 24 kHz wav, 16 kHz wav, mel frames)
         for i, (audio, sr) in enumerate(zip(audios, srs)):
             try:
-                wav24 = resample(np.asarray(audio, np.float32), int(sr), 24000)
+                wav24 = resample_sinc(audio, int(sr), 24000)
                 t24 = len(wav24) // hop
                 if t24 < 1 or len(wav24) <= pad:
                     raise ValueError(
                         f"audio too short for mel frontend ({len(wav24)} samples at 24 kHz)")
-                wav16 = resample(np.asarray(audio, np.float32), int(sr), 16000)
+                wav16 = resample_sinc(audio, int(sr), 16000)
                 # each row reflects its own tail: padding the zero-padded
                 # batch buffer on the device would reflect zeros
                 prepped.append((i, np.pad(wav24, (pad, pad), mode="reflect"), wav16, t24))

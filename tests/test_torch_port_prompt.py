@@ -35,7 +35,6 @@ from jyutvoice_tpu_torch.models import campplus, flow_encoder, s3_tokenizer
 from jyutvoice_tpu_torch.nn import attention
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL, RTOL = 1e-5, 1e-4
 
 FE_KW = dict(input_size=64, output_size=64, attention_heads=2, linear_units=128,
@@ -617,8 +616,6 @@ def test_extractor_call_and_fallbacks(trees):
     np.testing.assert_array_equal(out.spk_embed, np.zeros(192, np.float32))
     _close(out.prompt_feat, jex(audio, 22050).prompt_feat[: out.prompt_feat.shape[0]],
            atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        PromptExtractor(device="cpu", streaming_encoder=True)
 
 
 @pytest.fixture(scope="module")
