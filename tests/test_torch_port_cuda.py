@@ -463,3 +463,58 @@ def test_extract_batch_device_dsp_on_card_matches_rows(cuda):
         assert _rel(b.spk_embed, one.spk_embed) <= 1e-2
         assert (b.speech_tokens == one.speech_tokens).mean() >= 0.9
         assert _rel(b.prompt_h, card._encode_tokens(b.speech_tokens)[: len(b.prompt_h)]) <= 1e-2
+
+
+def test_infer_cli_ref_audio_runs_on_the_card(cuda, tmp_path):
+    """cli.infer --ref-audio with its default device: the extraction and the
+    cloned request on the card (reduced models; a flow-encoder .npz tree and
+    a speech-tokenizer torch checkpoint written here), kernels 1 and 2
+    launched."""
+    import wave
+
+    import numpy as np
+
+    import refshim_s3
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch import config as m
+    from jyutvoice_tpu_torch.cli import infer
+    from jyutvoice_tpu_torch.models.s3_tokenizer import S3TokenizerConfig
+    from jyutvoice_tpu_torch.weights import random_init
+
+    fe = m.FlowEncoderConfig(input_size=64, output_size=64, attention_heads=2,
+                             linear_units=128, num_blocks=2, num_up_blocks=1)
+    cfg = m.JyutVoiceConfig(
+        tts=m.TTSConfig(encoder=m.TextEncoderConfig(n_layers=1, filter_channels=64),
+                        cfm=m.CFMConfig(estimator=m.EstimatorConfig(n_blocks=1,
+                                                                    num_mid_blocks=1))),
+        hift=m.HiFTConfig(base_channels=64), flow_encoder=fe)
+    s3 = dict(n_mels=128, n_audio_ctx=256, n_audio_state=64, n_audio_head=4, n_audio_layer=2)
+
+    def flat(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: v for key, sub in node.items() for k, v in flat(sub, f"{prefix}{key}/").items()}
+        if isinstance(node, list):
+            return {k: v for i, sub in enumerate(node) for k, v in flat(sub, f"{prefix}{i}/").items()}
+        return {prefix[:-1]: node}
+
+    np.savez(tmp_path / "flow.npz", **flat(random_init.init_flow_encoder_tree(fe)))
+    torch.manual_seed(0)
+    torch.save(refshim_s3.S3TokenizerV2(refshim_s3.S3Config(**s3)).state_dict(),
+               tmp_path / "s3.pt")
+    t = np.arange(int(1.5 * 22050)) / 22050
+    with wave.open(str(tmp_path / "ref.wav"), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(22050)
+        f.writeframes((3000 * np.sin(2 * np.pi * 150 * t)).astype(np.int16).tobytes())
+    kernels.reset_launch_counts()
+    res = infer.main(
+        ["--text", "佢", "--phone", "keoi5", "--n-timesteps", "2",
+         "--ref-audio", str(tmp_path / "ref.wav"), "--flow-encoder", str(tmp_path / "flow.npz"),
+         "--tokenizer-torch", str(tmp_path / "s3.pt"), "--output", str(tmp_path / "out.wav")],
+        cfg=cfg, extractor_kw=dict(tokenizer_cfg=S3TokenizerConfig(**s3)),
+    )
+    assert res.wav.shape == (res.mel_frames * 480,) and np.isfinite(res.wav).all()
+    est = cfg.tts.cfm.estimator
+    assert kernels.LAUNCHES["flash_attention"] == 2 * (est.num_mid_blocks + 2) * est.n_blocks
+    assert kernels.LAUNCHES["resblock_stage"] == 3
