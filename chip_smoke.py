@@ -50,19 +50,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      (seeded random flow-encoder, CAM++ and S3 trees) on the card against
      the same on the CPU, on a 5 s cut of phase 6's Cantonese waveform fed
      at 24 kHz and resampled to 16 and 44.1 kHz (mel energies within 1e-5
-     + 1e-3 of the CPU's, spk_embed and prompt_h within 1e-2 of max |ref|, the flow encoder on
-     the card's tokens on both sides, the share of equal tokens reported
-     and at least 0.9; the extraction launches no kernel); extract_batch
+     + 1e-3 of the CPU's, spk_embed and prompt_h within 1e-4 of max |ref|,
+     the flow encoder on the card's tokens on both sides, every token equal
+     apart from values within 1e-4 of an FSQ rounding edge, those counted
+     and at most 1 %; the extraction launches no kernel); extract_batch
      with the DSP on the card on 4 rows of different lengths and rates
-     against per-row calls; one cloned request at the 512-frame bucket
+     against per-row calls, to the same bars; one cloned request at the
+     512-frame bucket
      (560 kernel-1 and 2 kernel-2 launches, counted in the kernel line);
      CUDA-event times of the components, cold and warm;
   7. the long-form path: synthesize_long with exact attention at 4096 frames
      (kernel 3), the same in auto mode (banded), exact with a 100-frame
      prompt (2560 frames in all, kernel 3), and synthesize past the
-     15000-frame bucket with PCM16 (delegated, banded); then two long-form
-     requests (exact with a prompt at 2560 frames, banded at 2048) against
-     the same model on the CPU;
+     15000-frame bucket with PCM16 (delegated, banded), with the largest
+     |q|, |k| and |v| that reach kernel 3 in the prompted request (it
+     rounds them to fp16, whose largest finite value is 65504); then two
+     long-form requests (exact with a prompt at 2560 frames, banded at
+     2048) against the same model on the CPU;
   8. kernels 4 and 5 (the stock flash backward, dK/dV and dQ, on tf32
      wgmma) against the plain backward on every row, standalone and through
      flash_stock_bwd with one shared preparation, and the preparation of
@@ -75,8 +79,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      kernel 3 timed with and without residuals;
   9. the training path: a full-width trainer (default JyutVoiceConfig,
      random weights, seed 0) takes 8 steps at batch 2 in the 2048-frame mel
-     bucket (kernels 3, 4 and 5, 56 launches each per step), then 3 steps
-     at the short shape (batch 16, text 128, mel 512, "plain" attention);
+     bucket (kernels 3, 4 and 5, 56 launches each per step; the largest
+     |q|, |k| and |v| that reach kernel 3 in the first), then 3 steps at
+     the short shape (batch 16, text 128, mel 512, "plain" attention);
      then one deterministic step of a reduced-depth full-width model, its
      losses and trainable gradients on the card against the CPU.
 Launch counts are zeroed before and read after each request of phases 6,
@@ -86,6 +91,7 @@ object with one entry per kernel; the last line is {"ok": true, "device":
 available.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -592,6 +598,44 @@ def phase_flash_stock_bwd():
     return {k: dict(max_abs_err=worst[k], **main[k]) for k in main}
 
 
+FP16_MAX = 65504.0  # kernel 3 rounds q, k and v to fp16
+
+
+@contextlib.contextmanager
+def kernel3_input_peaks():
+    """The largest |q|, |k| and |v| of the card's calls to kernel 3 through
+    the estimator's attention, kept on the device (no sync per call) and
+    read as floats on exit. Its reductions add host time to a host-bound
+    phase, so it stays out of the runs whose times are compared."""
+    import torch
+
+    from jyutvoice_tpu_torch.nn import attention
+
+    real = attention.flash_stock
+    peaks = {}
+
+    def probe(q, k, v, *args, **kwargs):
+        with torch.no_grad():
+            for name, x in (("q", q), ("k", k), ("v", v)):
+                m = x.detach().abs().amax()
+                peaks[name] = torch.maximum(peaks[name], m) if name in peaks else m
+        return real(q, k, v, *args, **kwargs)
+
+    attention.flash_stock = probe
+    try:
+        yield peaks
+    finally:
+        attention.flash_stock = real
+        peaks.update({name: float(m) for name, m in peaks.items()})
+
+
+def check_kernel3_peaks(label, peaks):
+    log(f"{label}: largest input of kernel 3 |q| {peaks['q']:.4g}, |k| {peaks['k']:.4g}, "
+        f"|v| {peaks['v']:.4g} (fp16 max {FP16_MAX:g})")
+    if not max(peaks.values()) < FP16_MAX:
+        fail(f"{label}: an input of kernel 3 is beyond fp16's range")
+
+
 def phase_train():
     """The training path at full width: 8 steps at the 2048-frame bucket
     (kernels 3, 4, 5), then 3 steps at the short shape ("plain")."""
@@ -629,7 +673,7 @@ def phase_train():
     tts_mod.maximum_path = timed_mas
     totals = {k: 0 for k in kernels.LAUNCHES}
     try:
-        def run(label, rows, steps, want):
+        def run(label, rows, steps, want, probe=False):
             dm = TextMelDataModule(rows, DataConfig(batch_size=trainer.train_cfg.batch_size))
             batches = list(dm.train_batches(0))[:steps]
             step_ms, mas_ms = [], []
@@ -639,7 +683,11 @@ def phase_train():
                 torch.cuda.synchronize()
                 kernels.reset_launch_counts()
                 t0 = time.perf_counter()
-                metrics = trainer.step(batch)
+                # the first step (cold, outside the median) also reads the
+                # inputs of kernel 3
+                with (kernel3_input_peaks() if probe and i == 0
+                      else contextlib.nullcontext()) as peaks:
+                    metrics = trainer.step(batch)
                 torch.cuda.synchronize()
                 step_ms.append((time.perf_counter() - t0) * 1e3)
                 launches = dict(kernels.LAUNCHES)
@@ -653,6 +701,8 @@ def phase_train():
                     f"launches={launches}")
                 if launches != want or not (np.isfinite(loss) and np.isfinite(gnorm)):
                     fail(f"training step {i + 1} ({label}) failed its checks (want {want})")
+                if probe and i == 0:
+                    check_kernel3_peaks(f"train {label} step 1", peaks)
             peak = torch.cuda.max_memory_allocated() / 2**30
             warm = step_ms[2:] if len(step_ms) > 3 else step_ms[1:]
             log(f"train {label}: {len(batches)} steps, median step ms (steps "
@@ -665,7 +715,7 @@ def phase_train():
         long_rows = dummy_rows(20, seed=0, mel_frames=(1400, 2000))
         batches = run("B=2 mel 2048", long_rows, 8, dict(
             zero, flash_stock=per_step, flash_stock_bwd_dkv=per_step,
-            flash_stock_bwd_dq=per_step, flash_stock_bwd_prep=per_step))
+            flash_stock_bwd_dq=per_step, flash_stock_bwd_prep=per_step), probe=True)
         if any(b["y"].shape[1] != 2048 for b in batches) or len(batches) != 8:
             fail("the long training batches did not land in the 2048-frame bucket")
         moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
@@ -895,8 +945,15 @@ def phase_main_path(synth):
 # amplifies the f32 DFT's rounding: at mel 1e-4 a 3e-6 difference is 0.03
 # in the log.
 CLONE_MEL_ATOL, CLONE_MEL_RTOL = 1e-5, 1e-3
-CLONE_REL = 1e-2  # card against CPU: max |err| / max |ref| of spk_embed and prompt_h
-CLONE_TOKEN_SHARE = 0.9  # card against CPU: the least share of speech tokens that agree
+# card against CPU and batch against row: max |err| / max |ref| of spk_embed
+# and prompt_h. H100 runs read 4.8e-7 to 1.1e-6 for card against CPU and up
+# to 1.6e-5 for the spk_embed of batch (fbank on the card) against row
+# (fbank on the host).
+CLONE_REL = 1e-4
+# speech tokens: every one equal, apart from those with a value within
+# FSQ_EDGE of a rounding edge (+-0.5), where two runs may round apart; those
+# at most 1 % of the tokens (at least 1)
+FSQ_EDGE = 1e-4
 
 
 def _rel(a, b):
@@ -914,6 +971,29 @@ def _mel_err(a, b):
     a, b = a[:n].astype(np.float64), b[:n].astype(np.float64)
     ratio = np.abs(np.exp(a) - np.exp(b)) / (CLONE_MEL_ATOL + CLONE_MEL_RTOL * np.exp(b))
     return float(np.abs(a - b).max()), float(ratio.max())
+
+
+def _token_check(ex, audio, sr, got, want):
+    """(ok, tokens that differ, tokens at an FSQ edge): got against want,
+    the edges from ex's S3 on the host whisper mel of `audio`."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch.audio.resample import resample_sinc
+    from jyutvoice_tpu_torch.audio.whisper_mel import whisper_log_mel
+    from jyutvoice_tpu_torch.models.s3_tokenizer import _FSQ_TANH_SCALE, apply_s3_encoder
+
+    if got.shape != want.shape:
+        return False, -1, -1
+    model = ex.tokenizer.model
+    mel = whisper_log_mel(resample_sinc(audio, sr, 16000)).T[None]
+    with torch.inference_mode():
+        h = apply_s3_encoder(model, torch.from_numpy(np.ascontiguousarray(mel)).to(ex.device))
+        z = torch.tanh(model.fsq(h)) * _FSQ_TANH_SCALE
+    edge = (torch.abs(torch.abs(z) - 0.5) < FSQ_EDGE).any(dim=-1)[0, : len(want)].cpu().numpy()
+    differ = got != want
+    ok = not (differ & ~edge).any() and differ.sum() <= max(1, int(0.01 * differ.size))
+    return ok, int(differ.sum()), int(edge.sum())
 
 
 def _event_ms(fn, loops=3):
@@ -974,21 +1054,22 @@ def phase_clone(synth, ref_wav24, scale, smi):
         if any(kernels.LAUNCHES.values()):
             fail(f"prompt extraction launched kernels: {kernels.LAUNCHES}")
         g = cpu(audio, sr)
-        same_len = f.speech_tokens.shape == g.speech_tokens.shape
-        share = float((f.speech_tokens == g.speech_tokens).mean()) if same_len else 0.0
+        tok_ok, n_differ, n_edge = _token_check(cpu, audio, sr, f.speech_tokens, g.speech_tokens)
         # the flow encoder on identical tokens: the card's, on both sides
         h_cpu = cpu._encode_tokens(f.speech_tokens)[: f.prompt_h.shape[0]]
         log_err, mel_ratio = _mel_err(f.prompt_feat, g.prompt_feat)
         errs = dict(spk_embed=_rel(f.spk_embed, g.spk_embed), prompt_h=_rel(f.prompt_h, h_cpu))
         finite = all(np.isfinite(x).all() for x in (f.prompt_feat, f.prompt_h, f.spk_embed))
         log(f"clone @ {sr} Hz: prompt frames {f.prompt_feat.shape[0]} (cpu "
-            f"{g.prompt_feat.shape[0]}), tokens {f.speech_tokens.shape[0]}, token agreement "
-            f"card/cpu {share:.4f}, prompt_feat max_abs_err {log_err:.3e} (mel error / bar "
+            f"{g.prompt_feat.shape[0]}), tokens {f.speech_tokens.shape[0]}, card/cpu tokens "
+            f"that differ {n_differ} (share equal {1 - n_differ / len(g.speech_tokens):.4f}; "
+            f"at an FSQ edge on the cpu: {n_edge}), prompt_feat "
+            f"max_abs_err {log_err:.3e} (mel error / bar "
             f"{mel_ratio:.3f}), spk_embed rel_err {errs['spk_embed']:.3e}, prompt_h (same "
             f"tokens) rel_err {errs['prompt_h']:.3e} (bar {CLONE_REL}), finite={finite}")
         if not (finite and f.prompt_h.shape == f.prompt_feat.shape
                 and f.prompt_feat.shape == g.prompt_feat.shape
-                and f.spk_embed.shape == (192,) and share >= CLONE_TOKEN_SHARE
+                and f.spk_embed.shape == (192,) and tok_ok
                 and mel_ratio <= 1.0 and errs["spk_embed"] <= CLONE_REL
                 and errs["prompt_h"] <= CLONE_REL):
             fail(f"the card's prompt extraction at {sr} Hz does not agree with the CPU")
@@ -1002,18 +1083,19 @@ def phase_clone(synth, ref_wav24, scale, smi):
         if isinstance(b, Exception):
             fail(f"extract_batch row {i} failed: {b!r}")
         one = ex(audio, sr)
-        same_len = b.speech_tokens.shape == one.speech_tokens.shape
-        share = float((b.speech_tokens == one.speech_tokens).mean()) if same_len else 0.0
+        tok_ok, n_differ, n_edge = _token_check(ex, audio, sr, b.speech_tokens,
+                                                one.speech_tokens)
         h_one = ex._encode_tokens(b.speech_tokens)[: b.prompt_h.shape[0]]
         log_err, mel_ratio = _mel_err(b.prompt_feat, one.prompt_feat)
         spk_err, h_err = _rel(b.spk_embed, one.spk_embed), _rel(b.prompt_h, h_one)
         log(f"clone extract_batch(device_dsp=True) row {i} ({len(audio)} samples @ {sr} Hz) vs "
             f"__call__: prompt frames {b.prompt_feat.shape[0]}/{one.prompt_feat.shape[0]}, "
-            f"token agreement {share:.4f}, prompt_feat max_abs_err {log_err:.3e} (mel error / "
+            f"tokens that differ {n_differ} (at an FSQ edge: {n_edge}), prompt_feat "
+            f"max_abs_err {log_err:.3e} (mel error / "
             f"bar {mel_ratio:.3f}), spk_embed rel_err {spk_err:.3e}, prompt_h (same tokens) "
             f"rel_err {h_err:.3e}")
-        if not (same_len and b.prompt_feat.shape == one.prompt_feat.shape
-                and share >= CLONE_TOKEN_SHARE and mel_ratio <= 1.0
+        if not (tok_ok and b.prompt_feat.shape == one.prompt_feat.shape
+                and mel_ratio <= 1.0
                 and spk_err <= CLONE_REL and h_err <= CLONE_REL):
             fail(f"extract_batch row {i} does not agree with __call__")
 
@@ -1112,7 +1194,10 @@ def phase_long_form(synth):
     mel_ms = {}
     for label, entry, kw, t_total, (want_k1, want_k3) in runs:
         kernels.reset_launch_counts()
-        res = getattr(synth, entry)(n_timesteps=10, **kw)
+        # (a)'s mel time is set beside (a')'s: the probe stays out of it
+        probe = want_k3 and not label.startswith("(a)")
+        with kernel3_input_peaks() if probe else contextlib.nullcontext() as peaks:
+            res = getattr(synth, entry)(n_timesteps=10, **kw)
         launches = dict(kernels.LAUNCHES)
         head, t_mel = long_form_shapes(res.mel_frames, "prompt_feat" in kw,
                                        kw.get("attention", "auto"))
@@ -1132,6 +1217,8 @@ def phase_long_form(synth):
             f"timings={json.dumps(t)}")
         if not ok:
             fail(f"long-form request {label} failed its checks")
+        if probe:
+            check_kernel3_peaks(f"long-form {label}", peaks)
         mel_ms[label] = res.timings["mel"] * 1e3
         for k in counts:
             counts[k] += launches[k]

@@ -64,9 +64,7 @@ def load_params(path: str, kind: str, cfg):
     raise ValueError(kind)
 
 
-def main(argv=None, cfg=None, extractor_kw=None):
-    """extractor_kw: extra PromptExtractor arguments (e.g. the CAM++ and
-    tokenizer configs of reduced test models)."""
+def main(argv=None, cfg=None):
     parser = argparse.ArgumentParser(description="JyutVoice inference (PyTorch port)")
     parser.add_argument("--text", required=True)
     parser.add_argument("--lang", default="yue", choices=["yue", "zh", "en", "multilingual"])
@@ -118,7 +116,6 @@ def main(argv=None, cfg=None, extractor_kw=None):
             tokenizer_onnx=args.tokenizer_onnx,
             tokenizer_torch=args.tokenizer_torch,
             device=args.device,
-            **(extractor_kw or {}),
         )
         audio, sr = load_wav(args.ref_audio)
         feats = extractor(audio, sr)

@@ -15,9 +15,10 @@ as in the JAX package. Lengths are padded to geometric buckets and every
 model masks its padding, so a bucketed run equals the exact-length one.
 Without a CAM++ or tokenizer artifact the extractor returns a zero speaker
 embedding and no tokens (no prompt_h), as the JAX package does. Not
-ported: the onnxruntime backends (an artifact the native models cannot
-read is reported and left unused) and the JAX package's
-`streaming_encoder=True` (the KV-cached streaming encoder).
+ported: the onnxruntime backends (so an artifact that the native models
+cannot read raises, where the JAX package would fall back to onnxruntime)
+and the JAX package's `streaming_encoder=True` (the KV-cached streaming
+encoder).
 """
 
 from __future__ import annotations
@@ -46,8 +47,6 @@ from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 
 _log = logging.getLogger(__name__)
 
-ORT_NOT_PORTED = "the onnxruntime backend is not ported"
-
 
 def _time_bucket(n: int, base: int = 128, growth: float = 1.5) -> int:
     """Geometric length buckets: a bounded set of shapes, whatever the
@@ -73,17 +72,14 @@ class CampPlusEmbedder:
     stdlib reader or given as a JAX-layout tree (`params`)."""
 
     def __init__(self, onnx_path: Optional[str] = None, params: Optional[dict] = None,
-                 cfg: Optional[CampPlusConfig] = None, device="cuda"):
-        self.cfg = cfg or CampPlusConfig()
+                 device="cuda"):
+        self.cfg = CampPlusConfig()
         self.device = _prepare_device(device)
         if onnx_path and params is None:
-            try:
-                from jyutvoice_tpu_torch.weights.campplus_convert import campplus_from_onnx
+            from jyutvoice_tpu_torch.weights.campplus_convert import campplus_from_onnx
 
-                params = campplus_from_onnx(onnx_path, self.cfg)
-                _log.info("campplus: native backend (weights from %s)", onnx_path)
-            except Exception as e:
-                _log.warning("campplus native conversion failed (%s); %s", e, ORT_NOT_PORTED)
+            params = campplus_from_onnx(onnx_path, self.cfg)
+            _log.info("campplus: native backend (weights from %s)", onnx_path)
         self.model = None
         if params is not None:
             self.model = build_campplus(params, self.cfg).to(self.device)
@@ -109,21 +105,17 @@ class SpeechTokenizer:
     (`onnx_path`), or a JAX-layout tree (`params`)."""
 
     def __init__(self, onnx_path: Optional[str] = None, torch_path: Optional[str] = None,
-                 params: Optional[dict] = None, cfg: Optional[S3TokenizerConfig] = None,
-                 device="cuda"):
+                 params: Optional[dict] = None, device="cuda"):
         from jyutvoice_tpu_torch.weights import s3_convert
 
-        self.cfg = cfg or S3TokenizerConfig()
+        self.cfg = S3TokenizerConfig()
         self.device = _prepare_device(device)
         if torch_path and params is None:
             params = s3_convert.s3_from_torch(torch_path, self.cfg)
             _log.info("speech tokenizer: native backend (%s)", torch_path)
         if onnx_path and params is None:
-            try:
-                params = s3_convert.s3_from_onnx(onnx_path, self.cfg)
-                _log.info("speech tokenizer: native backend (%s)", onnx_path)
-            except Exception as e:
-                _log.warning("speech tokenizer onnx unusable (%s); %s", e, ORT_NOT_PORTED)
+            params = s3_convert.s3_from_onnx(onnx_path, self.cfg)
+            _log.info("speech tokenizer: native backend (%s)", onnx_path)
         self.model = None
         if params is not None:
             self.model = load_jax_params(S3Tokenizer(self.cfg), params).to(self.device).eval()
@@ -154,8 +146,10 @@ class PromptExtractor:
     """flow_encoder_params, campplus_params and tokenizer_params are
     JAX-layout trees (`init_flow_encoder` / `init_campplus` /
     `init_s3_tokenizer`, the converters of `weights/`, or
-    `weights/random_init.py`); campplus_onnx, tokenizer_onnx and
-    tokenizer_torch are artifact paths converted at construction."""
+    `weights/random_init.py`), the CAM++ and S3 ones at the default
+    `CampPlusConfig` / `S3TokenizerConfig`; campplus_onnx, tokenizer_onnx
+    and tokenizer_torch are artifact paths converted at construction (one
+    that the native models cannot read raises)."""
 
     def __init__(
         self,
@@ -167,9 +161,7 @@ class PromptExtractor:
         device_dsp: bool = False,
         device="cuda",
         campplus_params: Optional[dict] = None,
-        campplus_cfg: Optional[CampPlusConfig] = None,
         tokenizer_params: Optional[dict] = None,
-        tokenizer_cfg: Optional[S3TokenizerConfig] = None,
     ):
         self.device = _prepare_device(device)
         self.mel = MelSpec()
@@ -177,10 +169,9 @@ class PromptExtractor:
         # device computation (matmul DFT) instead of per row on the host
         self.device_dsp = device_dsp
         self.embedder = CampPlusEmbedder(campplus_onnx, params=campplus_params,
-                                         cfg=campplus_cfg, device=self.device)
-        self.tokenizer = SpeechTokenizer(tokenizer_onnx, torch_path=tokenizer_torch,
-                                         params=tokenizer_params, cfg=tokenizer_cfg,
                                          device=self.device)
+        self.tokenizer = SpeechTokenizer(tokenizer_onnx, torch_path=tokenizer_torch,
+                                         params=tokenizer_params, device=self.device)
         self.flow_encoder_cfg = flow_encoder_cfg or FlowEncoderConfig()
         self.flow_encoder = None
         if flow_encoder_params is not None:

@@ -415,8 +415,39 @@ def _voiced(seconds, sr):
     return (0.1 * x).astype(np.float32)
 
 
+# card against CPU and batch against row: max |err| / max |ref| of
+# spk_embed and prompt_h (card runs read 4.8e-7 to 1.6e-5)
+CLONE_REL = 1e-4
+
+
 def _rel(a, b):
     return float(abs(a - b).max() / abs(b).max())
+
+
+def _token_edges(ex, audio, sr):
+    """Per token of `audio`: whether ex's S3 (on the host whisper mel, exact
+    length) puts a value within 1e-4 of an FSQ rounding edge (+-0.5)."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch.audio.resample import resample_sinc
+    from jyutvoice_tpu_torch.audio.whisper_mel import whisper_log_mel
+    from jyutvoice_tpu_torch.models.s3_tokenizer import _FSQ_TANH_SCALE, apply_s3_encoder
+
+    model = ex.tokenizer.model
+    mel = whisper_log_mel(resample_sinc(audio, sr, 16000)).T[None]
+    with torch.inference_mode():
+        h = apply_s3_encoder(model, torch.from_numpy(np.ascontiguousarray(mel)).to(ex.device))
+        z = torch.tanh(model.fsq(h)) * _FSQ_TANH_SCALE
+    return (torch.abs(torch.abs(z) - 0.5) < 1e-4).any(dim=-1)[0].cpu().numpy()
+
+
+def _assert_tokens(got, want, edge):
+    """Every token equal, apart from values at an FSQ edge: at most 1 % of
+    the tokens (at least 1)."""
+    assert got.shape == want.shape
+    differ = got != want
+    assert not (differ & ~edge[: len(want)]).any()
+    assert differ.sum() <= max(1, int(0.01 * differ.size))
 
 
 def _assert_mel_close(a, b):
@@ -434,8 +465,8 @@ def _assert_mel_close(a, b):
 def test_prompt_extractor_on_card_matches_cpu(cuda, sr):
     """Card against CPU at full width: the 24 kHz mel energies within 1e-5 +
     1e-3 of the CPU's, spk_embed and prompt_h (the flow encoder on the
-    card's tokens, both sides) max |err| / max |ref| <= 1e-2, at least 90 %
-    of the tokens equal; the extraction launches no kernel."""
+    card's tokens, both sides) max |err| / max |ref| <= CLONE_REL, every
+    token equal off FSQ edges; the extraction launches no kernel."""
     from jyutvoice_tpu_torch import kernels
 
     card, cpu = _cloning_extractors(cuda)
@@ -446,9 +477,9 @@ def test_prompt_extractor_on_card_matches_cpu(cuda, sr):
     g = cpu(audio, sr)
     assert f.prompt_feat.shape == g.prompt_feat.shape == f.prompt_h.shape
     _assert_mel_close(f.prompt_feat, g.prompt_feat)
-    assert _rel(f.spk_embed, g.spk_embed) <= 1e-2
-    assert (f.speech_tokens == g.speech_tokens).mean() >= 0.9
-    assert _rel(f.prompt_h, cpu._encode_tokens(f.speech_tokens)[: len(f.prompt_h)]) <= 1e-2
+    assert _rel(f.spk_embed, g.spk_embed) <= CLONE_REL
+    _assert_tokens(f.speech_tokens, g.speech_tokens, _token_edges(cpu, audio, sr))
+    assert _rel(f.prompt_h, cpu._encode_tokens(f.speech_tokens)[: len(f.prompt_h)]) <= CLONE_REL
 
 
 def test_extract_batch_device_dsp_on_card_matches_rows(cuda):
@@ -460,12 +491,12 @@ def test_extract_batch_device_dsp_on_card_matches_rows(cuda):
         one = card(audio, sr)
         assert b.prompt_feat.shape == one.prompt_feat.shape
         _assert_mel_close(b.prompt_feat, one.prompt_feat)
-        assert _rel(b.spk_embed, one.spk_embed) <= 1e-2
-        assert (b.speech_tokens == one.speech_tokens).mean() >= 0.9
-        assert _rel(b.prompt_h, card._encode_tokens(b.speech_tokens)[: len(b.prompt_h)]) <= 1e-2
+        assert _rel(b.spk_embed, one.spk_embed) <= CLONE_REL
+        _assert_tokens(b.speech_tokens, one.speech_tokens, _token_edges(card, audio, sr))
+        assert _rel(b.prompt_h, card._encode_tokens(b.speech_tokens)[: len(b.prompt_h)]) <= CLONE_REL
 
 
-def test_infer_cli_ref_audio_runs_on_the_card(cuda, tmp_path):
+def test_infer_cli_ref_audio_runs_on_the_card(cuda, tmp_path, monkeypatch):
     """cli.infer --ref-audio with its default device: the extraction and the
     cloned request on the card (reduced models; a flow-encoder .npz tree and
     a speech-tokenizer torch checkpoint written here), kernels 1 and 2
@@ -479,6 +510,7 @@ def test_infer_cli_ref_audio_runs_on_the_card(cuda, tmp_path):
     from jyutvoice_tpu_torch import config as m
     from jyutvoice_tpu_torch.cli import infer
     from jyutvoice_tpu_torch.models.s3_tokenizer import S3TokenizerConfig
+    from jyutvoice_tpu_torch.pipeline import prompt
     from jyutvoice_tpu_torch.weights import random_init
 
     fe = m.FlowEncoderConfig(input_size=64, output_size=64, attention_heads=2,
@@ -507,12 +539,14 @@ def test_infer_cli_ref_audio_runs_on_the_card(cuda, tmp_path):
         f.setsampwidth(2)
         f.setframerate(22050)
         f.writeframes((3000 * np.sin(2 * np.pi * 150 * t)).astype(np.int16).tobytes())
+    # the reduced tokenizer: the extractor builds it at its default config
+    monkeypatch.setattr(prompt, "S3TokenizerConfig", lambda: S3TokenizerConfig(**s3))
     kernels.reset_launch_counts()
     res = infer.main(
         ["--text", "佢", "--phone", "keoi5", "--n-timesteps", "2",
          "--ref-audio", str(tmp_path / "ref.wav"), "--flow-encoder", str(tmp_path / "flow.npz"),
          "--tokenizer-torch", str(tmp_path / "s3.pt"), "--output", str(tmp_path / "out.wav")],
-        cfg=cfg, extractor_kw=dict(tokenizer_cfg=S3TokenizerConfig(**s3)),
+        cfg=cfg,
     )
     assert res.wav.shape == (res.mel_frames * 480,) and np.isfinite(res.wav).all()
     est = cfg.tts.cfm.estimator

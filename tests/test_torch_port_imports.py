@@ -171,17 +171,19 @@ _CLONE_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
 from jyutvoice_tpu_torch.config import FlowEncoderConfig
 from jyutvoice_tpu_torch.models.campplus import CampPlusConfig
 from jyutvoice_tpu_torch.models.s3_tokenizer import S3TokenizerConfig
-from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+from jyutvoice_tpu_torch.pipeline import prompt
 from jyutvoice_tpu_torch.weights import random_init
 
 fe = FlowEncoderConfig(input_size=64, output_size=64, attention_heads=2, linear_units=128,
                        num_blocks=2, num_up_blocks=1)
 cp = CampPlusConfig(num_layers=(2, 2, 2))
 s3 = S3TokenizerConfig(n_audio_ctx=256, n_audio_state=64, n_audio_head=4, n_audio_layer=2)
-ex = PromptExtractor(
+# reduced CAM++ and S3: the extractor builds them at its default configs
+prompt.CampPlusConfig, prompt.S3TokenizerConfig = lambda: cp, lambda: s3
+ex = prompt.PromptExtractor(
     flow_encoder_params=random_init.init_flow_encoder_tree(fe), flow_encoder_cfg=fe,
-    campplus_params=random_init.init_campplus_tree(cp), campplus_cfg=cp,
-    tokenizer_params=random_init.init_s3_tree(s3), tokenizer_cfg=s3, device="cpu")
+    campplus_params=random_init.init_campplus_tree(cp),
+    tokenizer_params=random_init.init_s3_tree(s3), device="cpu")
 t = np.arange(22050) / 22050
 f = ex((0.3 * np.sin(2 * np.pi * 150 * t)).astype(np.float32), 22050)
 assert f.prompt_h.shape == f.prompt_feat.shape and f.spk_embed.shape == (192,)

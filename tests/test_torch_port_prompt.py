@@ -295,6 +295,22 @@ def test_campplus_builds_optional_biases():
 # ---------------------------------------------------------------------------
 
 
+def _fsq_edge(model, h):
+    """(B, T) bool: a value before FSQ's rounding lies within 1e-4 of a
+    rounding edge (+-0.5), where the two packages may round apart."""
+    z = torch.tanh(model.fsq(h)) * s3_tokenizer._FSQ_TANH_SCALE
+    return (torch.abs(torch.abs(z) - 0.5) < 1e-4).any(dim=-1).numpy()
+
+
+def _assert_tokens(got, want, edge):
+    """Tokens exactly, except at FSQ edges, and those few: at most 1 % of
+    them (at least 1)."""
+    assert got.shape == want.shape == edge.shape
+    differ = got != want
+    assert not (differ & ~edge).any()
+    assert differ.sum() <= max(1, int(0.01 * differ.size))
+
+
 def test_s3_matches_jax():
     tree = _np(js3.init_s3_tokenizer(jax.random.PRNGKey(1), JS3))
     port = load_jax_params(s3_tokenizer.S3Tokenizer(PS3), tree)
@@ -308,7 +324,7 @@ def test_s3_matches_jax():
         with torch.no_grad():
             h = s3_tokenizer.apply_s3_encoder(port, torch.from_numpy(mel_in), *args)
             tok = s3_tokenizer.apply_s3_tokenizer(port, torch.from_numpy(mel_in), *args)
-            z = torch.tanh(port.fsq(h)) * s3_tokenizer._FSQ_TANH_SCALE
+            edge = _fsq_edge(port, h)
         h_ref = J_S3_ENC(tree, JS3, jnp.asarray(mel_in), *jargs)
         tok_ref = np.asarray(J_S3_TOK(tree, JS3, jnp.asarray(mel_in), *jargs))
         n = 51 if tl is None else None
@@ -316,12 +332,7 @@ def test_s3_matches_jax():
             np.arange(tok_ref.shape[1])[None, :] < s3_tokenizer.out_len(t_len)[:, None])
         assert n is None or tok_ref.shape[1] == n
         _close(np.asarray(h)[valid], np.asarray(h_ref)[valid], atol=1e-4)
-        # tokens exactly, except where a tanh value lies within 1e-4 of a
-        # rounding edge (+-0.5) and the two packages may round apart
-        edge = (np.abs(np.abs(z.numpy()) - 0.5) < 1e-4).any(axis=-1)
-        differ = (tok.numpy() != tok_ref) & valid
-        assert not (differ & ~edge).any()
-        assert differ.sum() <= max(1, int(0.01 * valid.sum()))
+        _assert_tokens(tok.numpy()[valid], tok_ref[valid], edge[valid])
     # bucket padding: a row alone at its exact length equals its padded run
     with torch.no_grad():
         alone = s3_tokenizer.apply_s3_tokenizer(port, torch.from_numpy(mel_in[1:, :150]))
@@ -512,6 +523,23 @@ def test_s3_from_onnx_matches_jax(tmp_path):
         js3c.s3_from_onnx(mangled, JS3)
 
 
+@pytest.mark.parametrize("component", ["campplus", "tokenizer"])
+def test_unreadable_artifact_raises(tmp_path, component):
+    """With no onnxruntime backend in the port, an ONNX file that the native
+    CAM++ or S3 cannot read raises instead of leaving a zero speaker
+    embedding or no tokens."""
+    from jyutvoice_tpu_torch.pipeline.prompt import CampPlusEmbedder, SpeechTokenizer
+
+    path = str(tmp_path / "linear.onnx")
+    _export_onnx(torch.nn.Linear(4, 4), torch.zeros(1, 4), path)
+    if component == "campplus":
+        with pytest.raises(ValueError, match="does not match expected slot"):
+            CampPlusEmbedder(path, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="s3_from_torch"):
+            SpeechTokenizer(path, device="cpu")
+
+
 @pytest.mark.parametrize("fold", [False, True], ids=["names", "structural"])
 def test_campplus_from_onnx_matches_jax(tmp_path, fold):
     """Unfolded exports keep module-path names (the name map); folded ones
@@ -549,6 +577,15 @@ def trees():
     return fe, cp, s3
 
 
+def _small_models(mp):
+    """Monkeypatch the port extractor's default CAM++ and S3 configs to the
+    reduced ones (the JAX tests set theirs on the built extractor)."""
+    from jyutvoice_tpu_torch.pipeline import prompt
+
+    mp.setattr(prompt, "CampPlusConfig", lambda: PCP)
+    mp.setattr(prompt, "S3TokenizerConfig", lambda: PS3)
+
+
 def _extractors(trees):
     from jyutvoice_tpu.pipeline.prompt import PromptExtractor as JaxExtractor
     from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
@@ -557,9 +594,10 @@ def _extractors(trees):
     jex = JaxExtractor(flow_encoder_params=fe, flow_encoder_cfg=JFE)
     jex.embedder.cfg, jex.embedder.params = JCP, cp
     jex.tokenizer.cfg, jex.tokenizer.params = JS3, s3
-    pex = PromptExtractor(flow_encoder_params=fe, flow_encoder_cfg=PFE, device="cpu",
-                          campplus_params=cp, campplus_cfg=PCP,
-                          tokenizer_params=s3, tokenizer_cfg=PS3)
+    with pytest.MonkeyPatch.context() as mp:
+        _small_models(mp)
+        pex = PromptExtractor(flow_encoder_params=fe, flow_encoder_cfg=PFE, device="cpu",
+                              campplus_params=cp, tokenizer_params=s3)
     return jex, pex
 
 
@@ -571,15 +609,29 @@ def _rows():
             [24000, 16000, 44100, 24000, 16000])
 
 
-def _assert_features(got, want, tok_share=0.95):
+@torch.no_grad()
+def _token_edges(pex, audio, sr):
+    """Per token of `audio`: whether the port's S3 puts a value within 1e-4
+    of an FSQ rounding edge (on the host whisper mel, exact length)."""
+    wav16 = resample.resample_sinc(audio, sr, 16000)
+    mel_in = torch.from_numpy(np.ascontiguousarray(whisper_mel.whisper_log_mel(wav16).T[None]))
+    model = pex.tokenizer.model
+    return _fsq_edge(model, s3_tokenizer.apply_s3_encoder(model, mel_in))[0]
+
+
+def _assert_features(pex, got, want, audio, sr):
+    """The port's features against the JAX extractor's: tokens exactly off
+    FSQ edges; prompt_h always, from the port's flow encoder on the JAX
+    tokens where the token sequences differ."""
     _close(got.prompt_feat, want.prompt_feat, atol=1e-4)
     _close(got.spk_embed, want.spk_embed, atol=1e-4, rtol=1e-3)
-    assert got.speech_tokens.shape == want.speech_tokens.shape
-    same = got.speech_tokens == want.speech_tokens
-    assert same.mean() >= tok_share
-    if same.all():
-        _close(got.prompt_h, want.prompt_h, atol=1e-4)
+    n = len(want.speech_tokens)
+    _assert_tokens(got.speech_tokens, want.speech_tokens, _token_edges(pex, audio, sr)[:n])
     assert got.prompt_h.shape == want.prompt_h.shape == got.prompt_feat.shape
+    h = got.prompt_h
+    if (got.speech_tokens != want.speech_tokens).any():
+        h = pex._encode_tokens(want.speech_tokens)[: len(want.prompt_h)]
+    _close(h, want.prompt_h, atol=1e-4)
 
 
 @pytest.mark.parametrize("device_dsp", [False, True])
@@ -593,7 +645,7 @@ def test_extract_batch_matches_jax_and_single(trees, device_dsp):
     assert isinstance(got[-1], ValueError) and isinstance(want[-1], ValueError)
     for g, w, a, sr in zip(got[:-1], want[:-1], audios, srs):
         assert isinstance(g, PromptFeatures), g
-        _assert_features(g, w)
+        _assert_features(pex, g, w, a, sr)
         single = pex._extract_single(a, sr)
         np.testing.assert_array_equal(g.speech_tokens, single.speech_tokens)
         _close(g.prompt_feat, single.prompt_feat, atol=1e-4)
@@ -606,7 +658,7 @@ def test_extractor_call_and_fallbacks(trees):
 
     jex, pex = _extractors(trees)
     audio = _speechlike(1.4, 22050, 9)
-    _assert_features(pex(audio, 22050), jex(audio, 22050))
+    _assert_features(pex, pex(audio, 22050), jex(audio, 22050), audio, 22050)
     with pytest.raises(ValueError, match="too short"):
         pex(np.zeros(100, np.float32), 16000)
     # no artifacts: a zero speaker embedding and no tokens, as the JAX package
@@ -641,7 +693,7 @@ def test_cloned_request_matches_jax(trees, clone_setup):
     jex, pex = _extractors(trees)
     audio = _speechlike(1.9, 24000, 11)
     pf, jf = pex(audio, 24000), jex(audio, 24000)
-    _assert_features(pf, jf)
+    _assert_features(pex, pf, jf, audio, 24000)
     kw = dict(lang="yue", phone="hou2 sai3 gaai3", n_timesteps=2)
     out = port_s.synthesize("好世界", spk_embed=pf.spk_embed, prompt_feat=pf.prompt_feat,
                             prompt_h=pf.prompt_h, **kw)
@@ -697,21 +749,23 @@ def _write_wav(path, audio, sr):
         f.writeframes((np.clip(audio, -1, 1) * 32767).astype(np.int16).tobytes())
 
 
-def test_infer_cli_ref_audio_with_torch_checkpoints(tmp_path, trees, clone_setup):
+def test_infer_cli_ref_audio_with_torch_checkpoints(tmp_path, trees, clone_setup, monkeypatch):
     """cli.infer --ref-audio on the CPU with .ckpt / .pt trees for --ckpt,
-    --hift and --flow-encoder and a torch tokenizer checkpoint: the same
-    result as the library path on the same trees."""
+    --hift and --flow-encoder, a torch tokenizer checkpoint and a CAM++ ONNX
+    stand-in: the same result as the library path on the same trees."""
     from jyutvoice_tpu.weights.torch_export import save_torch_checkpoint
     from jyutvoice_tpu_torch.cli import infer
-    from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
-    from jyutvoice_tpu_torch.weights import s3_convert
+    from jyutvoice_tpu_torch.pipeline import prompt
+    from jyutvoice_tpu_torch.weights import campplus_convert, s3_convert
+    from tests.refshim_campplus import CAMPPlus
     from torch_port_setup import PORT_CFG
 
     _, port_s, tt, th = clone_setup
-    fe, cp, _ = trees
+    fe, _, _ = trees
     cfg = dataclasses.replace(PORT_CFG, flow_encoder=PFE)
     paths = {k: str(tmp_path / n) for k, n in (("tts", "tts.ckpt"), ("hift", "hift.pt"),
                                                 ("fe", "flow.pt"), ("tok", "s3.pt"),
+                                                ("cp", "campplus.onnx"),
                                                 ("wav", "ref.wav"), ("out", "out.wav"))}
     save_torch_checkpoint(paths["tts"], tt)
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
@@ -719,23 +773,29 @@ def test_infer_cli_ref_audio_with_torch_checkpoints(tmp_path, trees, clone_setup
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
                 for k, v in _flow_encoder_sd(fe, JFE).items()}, paths["fe"])
     torch.save(_s3_standin(3).state_dict(), paths["tok"])
+    torch.manual_seed(4)
+    _export_onnx(CAMPPlus(feat_dim=80, embedding_size=192).eval(),
+                 torch.from_numpy(_feat(150, 1)), paths["cp"])
     audio = _speechlike(1.5, 16000, 12)
     _write_wav(paths["wav"], audio, 16000)
 
+    # the reduced tokenizer; CAM++ is at its default config
+    monkeypatch.setattr(prompt, "S3TokenizerConfig", lambda: PS3)
     res = infer.main(
         ["--text", "好", "--phone", "hou2", "--n-timesteps", "2", "--device", "cpu",
          "--ckpt", paths["tts"], "--hift", paths["hift"], "--flow-encoder", paths["fe"],
-         "--tokenizer-torch", paths["tok"], "--ref-audio", paths["wav"],
-         "--output", paths["out"]],
-        cfg=cfg, extractor_kw=dict(campplus_params=cp, campplus_cfg=PCP, tokenizer_cfg=PS3),
+         "--tokenizer-torch", paths["tok"], "--campplus-onnx", paths["cp"],
+         "--ref-audio", paths["wav"], "--output", paths["out"]],
+        cfg=cfg,
     )
     assert os.path.getsize(paths["out"]) > 44
-    ex = PromptExtractor(flow_encoder_params=fe, flow_encoder_cfg=PFE, device="cpu",
-                         campplus_params=cp, campplus_cfg=PCP,
-                         tokenizer_params=s3_convert.s3_from_torch(paths["tok"], PS3),
-                         tokenizer_cfg=PS3)
+    ex = prompt.PromptExtractor(
+        flow_encoder_params=fe, flow_encoder_cfg=PFE, device="cpu",
+        campplus_params=campplus_convert.campplus_from_onnx(paths["cp"]),
+        tokenizer_params=s3_convert.s3_from_torch(paths["tok"], PS3))
     wav, sr = infer.load_wav(paths["wav"])
     f = ex(wav, sr)
+    assert np.abs(f.spk_embed).max() > 0
     direct = port_s.synthesize("好", lang="yue", phone="hou2", spk_embed=f.spk_embed,
                                prompt_feat=f.prompt_feat, prompt_h=f.prompt_h,
                                n_timesteps=2, length_scale=0.9)
