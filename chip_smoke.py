@@ -59,6 +59,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      512-frame bucket
      (560 kernel-1 and 2 kernel-2 launches, counted in the kernel line);
      CUDA-event times of the components, cold and warm;
+  6c. kernels 1 and 2 at the streaming shapes (chunk 100: seg 134, a
+     168-frame vocoder segment): kernel 1 at T=134 and T=84, B=2 (one
+     stream) and B=8 (four sessions, with the length-0 rows of a free
+     slot, which must come out 0), chunk rules 0 and 50/-1, timed at
+     T=134 beside SDPA and its plain version (events, and device time by
+     CUDA graph); kernel 2 at C=128 T=6720 and C=64 T=20161, batch 1 and
+     4, beside its plain version and bound;
+  6d. the streaming path at full width, 10 steps, chunk 100:
+     synthesize_streaming on the 512-bucket text unprompted (cold, warm),
+     with estimator_chunk_masks=True and with phase 6b's 250-frame prompt
+     (capacity 256, "plain" attention), every chunk's launches checked
+     (560 kernel-1 and 2 kernel-2 launches unprompted, no kernel 1
+     prompted), with the first chunk's and each chunk's ms (host clock
+     fenced by torch.cuda.synchronize()) and the RTF; a 3-chunk stream
+     against the CPU (mel MAE < 1e-2); MultiStreamSynthesizer with 4
+     sessions of different lengths, an unprompted lane and a prompted one
+     mixing cloned and plain sessions, against single streams (1e-4 of max
+     |ref|), with tick ms and the aggregate RTF;
+     PromptExtractor(streaming_encoder=True) and StreamingTokenEncoder on
+     phase 6b's tokens against the whole streaming flow encoder (1e-4 of
+     max |ref|); cli.infer --stream on its default device;
   7. the long-form path: synthesize_long with exact attention at 4096 frames
      (kernel 3), the same in auto mode (banded), exact with a 100-frame
      prompt (2560 frames in all, kernel 3), and synthesize past the
@@ -85,7 +106,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      then one deterministic step of a reduced-depth full-width model, its
      losses and trainable gradients on the card against the CPU.
 Launch counts are zeroed before and read after each request of phases 6,
-6b and 7 and each training step of phase 9. The line before the last is a JSON
+6b and 7, each streamed chunk and multi-session tick of phase 6d, and each
+training step of phase 9. The line before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
 available.
@@ -93,8 +115,10 @@ available.
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM datasheet peaks (NVIDIA), dense
@@ -1131,7 +1155,336 @@ def phase_clone(synth, ref_wav24, scale, smi):
     log(f"clone component times ({smi}), {f.prompt_feat.shape[0]} prompt frames, "
         f"{tok.shape[1]} tokens, cold / warm ms: "
         + ", ".join(f"{k} {c:.2f} / {w:.2f}" for k, (c, w) in times.items()))
-    return launches
+    return launches, f, trees, wav24
+
+
+STREAM_REL = 1e-4  # multi against single, token encoder against whole: of max |ref|
+
+
+def phase_stream_kernels(synth, smi):
+    """Kernels 1 and 2 at the streaming shapes (chunk 100: seg 134, vocoder
+    segment 168 frames): kernel 1 against its plain version at B=2 (one
+    stream) and B=8 (four sessions, a free slot of length 0 in both CFG
+    halves), full and 50-frame chunk masks, and at T=84 (chunk 50), timed
+    at T=134 beside SDPA and the plain version; kernel 2 at the stream's
+    pair (C=128 T=6720, C=64 T=20161) at batch 1 and 4 with the vocoder's
+    stage weights, beside its plain version and bound. CUDA-event medians of
+    3 loops."""
+    import torch
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch.nn import resblock_stage as rs
+    from jyutvoice_tpu_torch.nn.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        key_keep_mask,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    h, d = 8, 64
+    free = [134, 100, 0, 57, 134, 100, 0, 57]
+    cases = [(134, [134, 134], 0), (134, [100, 100], 0), (134, free, 0), (134, free, 50),
+             (84, [84, 40], 50), (84, [84, 0, 40, 84, 84, 0, 40, 84], 50)]
+    worst, timed = 0.0, {}
+    for t, lens, chunk in cases:
+        b = len(lens)
+        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = dict(scale=d ** -0.5, chunk_size=chunk, num_left_chunks=-1)
+        out = flash_attention(q, k, v, lengths, **kw)
+        ref = flash_attention_plain(q, k, v, lengths, **kw)
+        torch.cuda.synchronize()
+        ok = bool(torch.isfinite(out).all())
+        err = 0.0
+        for i, n in enumerate(lens):
+            if n:
+                err = max(err, float((out[i, :n] - ref[i, :n]).abs().max()))
+                ok &= within(out[i, :n], ref[i, :n], ATTN_TOL)
+            else:  # a free slot: every query row sees no key and comes out 0
+                ok &= bool(torch.all(out[i] == 0))
+        worst = max(worst, err)
+        extra = ""
+        if t == 134 and chunk == 0 and lens[0] == 134:
+            ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, **kw), 200)
+            plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, lengths, **kw), 20)
+            keep = key_keep_mask(lengths, t, chunk, -1)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep, scale=kw["scale"]), 200)
+            pairs = int(keep.expand(-1, -1, t, -1).sum()) * h
+            bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
+            dev_ms = graph_time_ms(lambda: flash_attention(q, k, v, lengths, **kw))
+            timed[b] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                            device_ms=dev_ms)
+            extra = (f" ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
+                     f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        log(f"stream flash T={t} B={b} lengths={lens} chunk={chunk}/-1: "
+            f"max_abs_err={err:.3e} ok={ok}{extra} ({smi})")
+        if not ok:
+            fail(f"flash attention disagrees with its plain version at the streaming shape "
+                 f"T={t} lengths={lens} chunk={chunk}")
+        if t == 134 and chunk == 0 and lens == free:
+            # the same lane timed as the multi-session tick runs it
+            ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, **kw), 200)
+            keep = key_keep_mask(lengths, t, 0, -1)
+            qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep, scale=kw["scale"]), 200)
+            dev_ms = graph_time_ms(lambda: flash_attention(q, k, v, lengths, **kw))
+            log(f"stream flash T=134 B=8 (multi-session lane, free slot): ms={ms:.4f} "
+                f"device_ms={dev_ms:.4f} sdpa_ms={lib_ms:.4f} (SDPA's length-0 rows are NaN: "
+                f"timed only) ({smi})")
+            timed[8] = dict(ms=ms, library_ms=lib_ms, device_ms=dev_ms)
+
+    cfg = synth.cfg.hift
+    ks = tuple(cfg.resblock_kernel_sizes)
+    dil = tuple(cfg.resblock_dilation_sizes[0])
+    n = len(ks)
+    pair, stage_worst = {}, 0.0
+    for b in (1, 4):
+        acc = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for stage, t in ((1, 6720), (2, 20161)):
+            w = rs.pack_stage_weights(synth.hift.resblocks[stage * n : (stage + 1) * n], dil)
+            c = synth.hift.resblocks[stage * n].convs1[0].weight.shape[0]
+            prepared = rs.prepare_stage_weights(w, c, ks, dil)
+            x = torch.randn(b, t, c, device="cuda", generator=g) * 0.5
+            out = rs.resblock_stage_prepared(x, prepared)
+            ref = rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            ok = within(out, ref, STAGE_TOL)
+            stage_worst = max(stage_worst, err)
+            ms = cuda_time_ms(lambda: rs.resblock_stage_prepared(x, prepared), 20)
+            plain_ms = cuda_time_ms(
+                lambda: rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil), 5)
+            flops = b * t * c * c * 4 * len(dil) * sum(ks)
+            bound_ms, bound_by = bound(2 * x.numel() * 4 + w.numel() * 4, 3 * flops,
+                                       PEAK_TF32_FLOPS)
+            log(f"stream resblock_stage C={c} T={t} B={b}: max_abs_err={err:.3e} "
+                f"ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"(3xTF32, {bound_by}) ({smi})")
+            if not ok:
+                fail(f"resblock stage disagrees with its plain version at the streaming "
+                     f"shape C={c} T={t} B={b}")
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                acc[key] += val
+        pair[b] = acc
+        log(f"stream resblock_stage pair B={b}: ms={acc['ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.4f} ({smi})")
+    return worst, stage_worst, timed, pair
+
+
+def _stream_chunks(gen, est):
+    """Drive a chunk generator: per chunk its host ms (fenced) and launches;
+    fails unless each chunk launched kernel 1 `est` times and kernel 2
+    twice. Returns (chunks, per-chunk ms, ms to the first chunk)."""
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+
+    chunks, ms = [], []
+    t0 = t = time.perf_counter()
+    while True:
+        kernels.reset_launch_counts()
+        try:
+            chunk = next(gen)
+        except StopIteration:
+            break
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        ms.append((now - t) * 1e3)
+        t = now
+        launches = dict(kernels.LAUNCHES)
+        if launches["flash_attention"] != est or launches["resblock_stage"] != 2 or any(
+                v for k, v in launches.items() if k not in ("flash_attention", "resblock_stage")):
+            fail(f"stream chunk {len(chunks)} launched {launches} (want flash_attention {est}, "
+                 "resblock_stage 2)")
+        chunks.append(chunk)
+    return chunks, ms, ms[0] if ms else float("nan")
+
+
+def phase_stream(synth, scale, clone_feats, trees, wav24, params_tts, params_hift, smi):
+    """The streaming path at full width, 10 steps, chunk 100: synthesize_
+    streaming on the 512-bucket text (unprompted, cold then warm; with the
+    estimator's 50-frame chunk masks; prompted with phase 6b's 250-frame
+    prompt, capacity 256, "plain" attention), each chunk's launches checked
+    (560 kernel-1 and 2 kernel-2 launches unprompted, no kernel 1
+    prompted); a 3-chunk stream against the CPU; MultiStreamSynthesizer
+    with 4 sessions of different lengths (unprompted lane, and a prompted
+    lane mixing cloned and plain sessions) against single streams;
+    PromptExtractor(streaming_encoder=True) and StreamingTokenEncoder on
+    phase 6b's tokens against the whole streaming flow encoder; cli.infer
+    --stream on its default device. Returns the launches of its main-path
+    runs."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.cli import infer
+    from jyutvoice_tpu_torch.models.flow_encoder import apply_flow_encoder
+    from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+    from jyutvoice_tpu_torch.pipeline.streaming import (
+        MultiStreamSynthesizer,
+        StreamingSynthesizer,
+        StreamingTokenEncoder,
+    )
+
+    est_cfg = synth.cfg.tts.cfm.estimator
+    per_chunk = 10 * (est_cfg.num_mid_blocks + 2) * est_cfg.n_blocks
+    yue = dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3")
+    counts = {"flash_attention": 0, "resblock_stage": 0}
+    pf, ph, spk_embed = clone_feats.prompt_feat, clone_feats.prompt_h, clone_feats.spk_embed
+    runs = [("unprompted (cold)", {}, per_chunk), ("unprompted", {}, per_chunk),
+            ("chunk masks", dict(estimator_chunk_masks=True), per_chunk),
+            (f"prompted ({pf.shape[0]}-frame prompt, capacity 256)",
+             dict(prompt_feat=pf, prompt_h=ph, spk_embed=spk_embed), 0)]
+    mu_y, c, y_len = synth.prepare_stream(**yue, length_scale=scale)
+    for label, kw, want_k1 in runs:
+        t0 = time.perf_counter()
+        gen = synth.synthesize_streaming(**yue, length_scale=scale, chunk_frames=100,
+                                         n_timesteps=10, **kw)
+        chunks, ms, _ = _stream_chunks(gen, want_k1)
+        total_s = time.perf_counter() - t0
+        wav = np.concatenate(chunks)
+        audio_s = len(wav) / 24000
+        first = sum(ms[:1])  # the generator's first next() includes the text half
+        ok = np.isfinite(wav).all() and wav.shape == (y_len * 480,)
+        log(f"stream {label}: {len(chunks)} chunks, {y_len} frames, wav {wav.shape[0]} samples, "
+            f"first chunk {first:.1f} ms, per chunk median {np.median(ms):.1f} ms "
+            f"(all: {', '.join(f'{m:.1f}' for m in ms)}), total {total_s * 1e3:.1f} ms, "
+            f"rtf {total_s / audio_s:.4f}, launches per chunk flash_attention {want_k1} "
+            f"resblock_stage 2, finite={bool(np.isfinite(wav).all())} ({smi})")
+        if not ok:
+            fail(f"stream {label} failed its checks")
+        counts["flash_attention"] += want_k1 * len(chunks)
+        counts["resblock_stage"] += 2 * len(chunks)
+
+    # a 3-chunk stream on the card against the same on the CPU (plain versions)
+    mu3 = mu_y[:250]
+    spk0 = np.asarray(c, np.float32)
+    card_ss = synth._streams[(100, 0, 10, False)]
+    cpu_ss = StreamingSynthesizer(synth.cfg, params_tts, params_hift, chunk_frames=100,
+                                  n_timesteps=10, device="cpu")
+    t = time.perf_counter()
+    want = list(cpu_ss.stream(mu3, spk0, emit_mel=True))
+    cpu_s = time.perf_counter() - t
+    kernels.reset_launch_counts()
+    got = list(card_ss.stream(mu3, spk0, emit_mel=True))
+    if kernels.LAUNCHES["flash_attention"] != 3 * per_chunk:
+        fail(f"the 3-chunk card stream launched {kernels.LAUNCHES}")
+    maes = [float(np.abs(m - r).mean()) for (_, m), (_, r) in zip(got, want)]
+    same = [w.shape for w, _ in got] == [w.shape for w, _ in want] and len(got) == 3
+    wav_err = max(float(np.abs(w - r).max()) for (w, _), (r, _) in zip(got, want)) if same else -1
+    log(f"stream reference (CPU, plain versions) vs card, 3 chunks of {mu3.shape[0]} frames: "
+        f"chunk lengths equal={same}, mel MAE per chunk {', '.join(f'{m:.3e}' for m in maes)}, "
+        f"wav max_abs_err {wav_err:.3e} (CPU {cpu_s:.1f} s)")
+    if not same or not max(maes) < 1e-2:
+        fail("the card's stream does not agree with the CPU")
+
+    # the multi-session lanes: 4 sessions of different lengths, one dispatch a tick
+    lens = (y_len, 350, 230, 130)
+    rng = np.random.default_rng(3)
+    embeds = [rng.standard_normal(192).astype(np.float32) for _ in range(3)]
+    spks = [spk0] + [synth.prepare_stream(**yue, length_scale=scale, spk_embed=e)[1]
+                     for e in embeds]
+    prompted_ss = synth._streams[(100, 256, 10, False)]
+    lanes = [("unprompted", 0, [(mu_y[:n], s) for n, s in zip(lens, spks)], card_ss),
+             ("prompted (2 cloned, 2 plain)", 256,
+              [(mu_y[:n], s, pf, ph) if i % 2 == 0 else (mu_y[:n], s)
+               for i, (n, s) in enumerate(zip(lens, spks))], prompted_ss)]
+    for label, p_cap, reqs, single_ss in lanes:
+        ms_ = MultiStreamSynthesizer(synth.cfg, synth.tts, synth.hift, max_sessions=4,
+                                     chunk_frames=100, prompt_frames=p_cap, n_timesteps=10)
+        want_k1 = 0 if p_cap else per_chunk
+        sid_to_idx = {ms_.open(*req): i for i, req in enumerate(reqs)}
+        out = {i: [] for i in range(len(reqs))}
+        tick_ms, n_dispatch = [], 0
+        torch.cuda.synchronize()
+        t0 = t = time.perf_counter()
+        while ms_.active or ms_._pending is not None:
+            kernels.reset_launch_counts()
+            chunks, _ = ms_.tick()
+            launches = dict(kernels.LAUNCHES)
+            if launches["resblock_stage"]:
+                n_dispatch += 1
+                if launches["flash_attention"] != want_k1 or launches["resblock_stage"] != 2:
+                    fail(f"multi-session tick ({label}) launched {launches}")
+            now = time.perf_counter()
+            tick_ms.append((now - t) * 1e3)
+            t = now
+            for sid, w in chunks.items():
+                out[sid_to_idx[sid]].append(w)
+        wall = time.perf_counter() - t0
+        counts["flash_attention"] += want_k1 * n_dispatch
+        counts["resblock_stage"] += 2 * n_dispatch
+        worst = 0.0
+        audio_s = 0.0
+        for i, req in enumerate(reqs):
+            got_w = np.concatenate(out[i])
+            ref_w = np.concatenate(list(single_ss.stream(*req)))
+            if got_w.shape != ref_w.shape:
+                fail(f"multi-session {label} session {i}: {got_w.shape} vs {ref_w.shape}")
+            worst = max(worst, float(np.abs(got_w - ref_w).max() / np.abs(ref_w).max()))
+            audio_s += len(got_w) / 24000
+        log(f"stream multi-session {label}: 4 sessions of {lens} frames, {n_dispatch} "
+            f"dispatches, tick ms median {np.median(tick_ms):.1f} (all: "
+            f"{', '.join(f'{m:.1f}' for m in tick_ms)}), wall {wall * 1e3:.1f} ms for "
+            f"{audio_s:.2f} s of audio, aggregate rtf {wall / audio_s:.4f}, launches per "
+            f"dispatch flash_attention {want_k1} resblock_stage 2; multi vs single max |err| / "
+            f"max |ref| {worst:.3e} (bar {STREAM_REL}) ({smi})")
+        if not worst <= STREAM_REL:
+            fail(f"the multi-session lane ({label}) does not agree with single streams")
+
+    # the KV-cached token encoder: PromptExtractor(streaming_encoder=True) and
+    # StreamingTokenEncoder on phase 6b's tokens against the whole streaming forward
+    ex = PromptExtractor(device="cuda", streaming_encoder=True, **trees)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    f = ex(wav24, 24000)
+    ex_s = time.perf_counter() - t
+    if any(kernels.LAUNCHES.values()):
+        fail(f"the streaming-encoder extraction launched kernels: {kernels.LAUNCHES}")
+    tokens = f.speech_tokens
+    with torch.inference_mode():
+        whole, _ = apply_flow_encoder(
+            ex.flow_encoder, torch.from_numpy(tokens[None].astype(np.int64)).cuda(),
+            torch.tensor([len(tokens)], device="cuda"), streaming=True)
+    whole = whole[0].cpu().numpy()
+    enc = StreamingTokenEncoder(ex.flow_encoder, t_max_tokens=1024)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pieces = [enc.push(tokens[i : i + 7]) for i in range(0, len(tokens), 7)] + [enc.flush()]
+    enc_s = time.perf_counter() - t
+    h = np.concatenate(pieces)
+    err_enc = _rel(h, whole[: len(h)])
+    err_ex = _rel(f.prompt_h, whole[: f.prompt_h.shape[0]])
+    log(f"stream token encoder: {len(tokens)} tokens in pieces of 7 -> {h.shape[0]} frames "
+        f"in {enc_s * 1e3:.1f} ms ({-(-len(tokens) // enc.chunk)} chunks of {enc.chunk}); "
+        f"vs the whole streaming forward max |err| / max |ref| {err_enc:.3e}; "
+        f"PromptExtractor(streaming_encoder=True) prompt_h {err_ex:.3e} "
+        f"(extraction {ex_s * 1e3:.1f} ms) (bar {STREAM_REL}) ({smi})")
+    if (h.shape != (2 * len(tokens), 80) or not err_enc <= STREAM_REL
+            or not err_ex <= STREAM_REL):
+        fail("the streaming token encoder does not agree with the whole streaming forward")
+
+    # the CLI on its default device
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = infer.main(["--text", "佢 係 邊 個", "--phone", "keoi5 hai6 bin1 go3", "--stream",
+                          "--length-scale", str(scale), "--output",
+                          os.path.join(tmp, "stream.wav")], cfg=synth.cfg)
+    cli_s = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    n_chunks = launches["resblock_stage"] // 2
+    log(f"stream cli.infer --stream (default device): {len(wav)} samples in {n_chunks} chunks, "
+        f"{cli_s:.1f} s with the model's set-up, launches {launches}")
+    if (not np.isfinite(wav).all() or n_chunks != 5 or wav.shape != (y_len * 480,)
+            or launches["flash_attention"] != per_chunk * n_chunks):
+        fail("cli.infer --stream failed its checks")
+    counts["flash_attention"] += launches["flash_attention"]
+    counts["resblock_stage"] += launches["resblock_stage"]
+    return counts
 
 
 def phase_reference(synth, params_tts, params_hift):
@@ -1289,8 +1642,27 @@ def main():
     stage = phase_stage(synth)
     main_results, counts, scale = phase_main_path(synth)
     phase_reference(synth, params_tts, params_hift)
-    clone_counts = phase_clone(synth, main_results["yue+phone@512"].wav, scale, smi)
+    clone_counts, clone_feats, clone_trees, clone_wav = phase_clone(
+        synth, main_results["yue+phone@512"].wav, scale, smi)
     counts = {k: counts[k] + clone_counts[k] for k in counts}
+    stream_err, stream_stage_err, stream_flash, stream_stage = phase_stream_kernels(synth, smi)
+    stream_counts = phase_stream(synth, scale, clone_feats, clone_trees, clone_wav, params_tts,
+                                 params_hift, smi)
+    counts = {k: counts[k] + stream_counts.get(k, 0) for k in counts}
+    flash["max_abs_err"] = max(flash["max_abs_err"], stream_err)
+    stage["max_abs_err"] = max(stage["max_abs_err"], stream_stage_err)
+    flash.update(stream_b2_ms=stream_flash[2]["ms"], stream_b2_device_ms=stream_flash[2]["device_ms"],
+                 stream_b2_plain_ms=stream_flash[2]["plain_ms"],
+                 stream_b2_library_ms=stream_flash[2]["library_ms"],
+                 stream_b2_bound_ms=stream_flash[2]["bound_ms"],
+                 stream_b8_ms=stream_flash[8]["ms"], stream_b8_device_ms=stream_flash[8]["device_ms"],
+                 stream_b8_library_ms=stream_flash[8]["library_ms"])
+    stage.update(stream_pair_b1_ms=stream_stage[1]["ms"],
+                 stream_pair_b1_plain_ms=stream_stage[1]["plain_ms"],
+                 stream_pair_b1_bound_ms=stream_stage[1]["bound_ms"],
+                 stream_pair_b4_ms=stream_stage[4]["ms"],
+                 stream_pair_b4_plain_ms=stream_stage[4]["plain_ms"],
+                 stream_pair_b4_bound_ms=stream_stage[4]["bound_ms"])
     long_counts = phase_long_form(synth)
     phase_long_reference(synth, params_tts, params_hift)
     del synth

@@ -12,14 +12,17 @@ package's format (`save_pytree_npz`) or the reference's torch files
 --hift the weights are random, drawn from --seed. Voice cloning takes
 --ref-audio with the CAM++ ONNX (--campplus-onnx), the speech tokenizer
 (--tokenizer-torch or a name-preserving --tokenizer-onnx) and the flow
-encoder (--flow-encoder), as the reference does. Runs on the GPU unless
---device cpu is given.
+encoder (--flow-encoder), as the reference does. --stream synthesizes
+chunk by chunk (--chunk-frames mel frames each), logs the first chunk's
+latency and writes the chunks joined. Runs on the GPU unless --device cpu
+is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import time
 import wave
 
 import numpy as np
@@ -82,6 +85,11 @@ def main(argv=None, cfg=None):
     parser.add_argument("--output", default="output.wav")
     parser.add_argument("--n-timesteps", type=int, default=10)
     parser.add_argument("--length-scale", type=float, default=0.9)
+    parser.add_argument("--stream", action="store_true",
+                        help="chunked streaming synthesis (overlap-cached decoder and "
+                             "vocoder; logs the first chunk's latency)")
+    parser.add_argument("--chunk-frames", type=int, default=100,
+                        help="mel frames per streaming chunk (100 = 2 s of audio)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights used without --ckpt/--hift")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
@@ -131,6 +139,24 @@ def main(argv=None, cfg=None):
         text = word_seg(text)
     # Synthesizer turns TF32 off on the GPU (parity with the f32 reference)
     synth = Synthesizer(cfg, params_tts, params_hift, device=args.device)
+    if args.stream:
+        t0 = time.perf_counter()
+        chunks = []
+        for i, chunk in enumerate(synth.synthesize_streaming(
+            text, lang=args.lang, phone=args.phone, spk_embed=spk_embed,
+            prompt_feat=prompt_feat, prompt_h=prompt_h, chunk_frames=args.chunk_frames,
+            length_scale=args.length_scale, n_timesteps=args.n_timesteps,
+        )):
+            if i == 0:
+                log.info("first chunk (%.2fs audio) after %.0f ms", len(chunk) / 24000,
+                         (time.perf_counter() - t0) * 1e3)
+            chunks.append(chunk)
+        wav = np.concatenate(chunks)
+        elapsed = time.perf_counter() - t0
+        save_wav(args.output, wav)
+        log.info("wrote %s (streamed, %d chunks): %.2fs audio, rtf=%.3f", args.output,
+                 len(chunks), len(wav) / 24000, elapsed / max(len(wav) / 24000, 1e-9))
+        return wav
     result = synth.synthesize(
         text, lang=args.lang, phone=args.phone, spk_embed=spk_embed,
         prompt_feat=prompt_feat, prompt_h=prompt_h, n_timesteps=args.n_timesteps,

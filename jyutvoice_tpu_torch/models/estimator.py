@@ -14,11 +14,15 @@ Each transformer block: LN -> attention (8 heads x 64) -> LN -> GELU FF (x4).
 
 Attention is chosen once per call, in the JAX package's order
 (`attention_route`): an explicit "banded" backend (the config's, or the
-per-call mode) on any device; then, for CUDA tensors only, the long-form
-banded gate (`use_banded`) and the stock-flash gate (`use_stock_flash`,
-kernel 3); otherwise exact attention through kernel 1. The JAX package takes
-the two gates only on its accelerator, so on the CPU both packages compute
-exact attention and the parity tests compare like with like.
+per-call mode) on any device; the "xla_scores" backend, f32 scores with an
+additive bias built from the mask itself ("plain"), which a front-padded
+mask needs (a prompted streaming segment masks rows [0, p_start)); then,
+for CUDA tensors only, the long-form banded gate (`use_banded`) and the
+stock-flash gate (`use_stock_flash`, kernel 3); otherwise exact attention
+through kernel 1, which takes each row's valid keys as a length (a prefix
+mask). The JAX package takes the two gates only on its accelerator, so on
+the CPU both packages compute exact attention and the parity tests compare
+like with like.
 
 Training (`training=True`, from `cfm_loss`) applies the JAX package's
 rewrite for the loss: no banded attention of either kind, the stock-flash
@@ -30,6 +34,7 @@ JAX package's XLA `plain_mha`, which it trains with at those lengths.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -82,7 +87,8 @@ def attention_route(
     on_cuda: bool = True, training: bool = False,
 ) -> str:
     """The attention backend of one estimator call: "banded", "flash_stock"
-    (kernel 3), "flash" (kernel 1) or, in training, "plain".
+    (kernel 3), "flash" (kernel 1) or "plain" (in training, and for the
+    config's attention_backend="xla_scores" at inference).
 
     `attention` is the per-call long-form mode: "banded" acts as the
     config's attention_backend="banded", "exact" as banded_long_threshold=0
@@ -109,12 +115,22 @@ def attention_route(
         if t % cfg.banded_chunk:
             raise ValueError(f"banded attention needs T % {cfg.banded_chunk} == 0, got T={t}")
         return "banded"
+    if cfg.attention_backend == "xla_scores":
+        return "plain"
     if on_cuda and cfg.attention_backend == "xla":
         if use_banded(t, chunk, cfg):
             return "banded"
         if use_stock_flash(t, chunk):
             return "flash_stock"
     return "flash"
+
+
+def with_attention_backend(est: "Estimator", backend: str) -> "Estimator":
+    """A view of `est` whose config names another attention backend: it
+    shares every parameter and buffer with `est`."""
+    view = copy.copy(est)
+    view.cfg = dataclasses.replace(est.cfg, attention_backend=backend)
+    return view
 
 
 class TimeMLP(nn.Module):

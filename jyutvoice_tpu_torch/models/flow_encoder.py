@@ -9,19 +9,26 @@ conv, a second embed, `num_up_blocks` more layers, a final LayerNorm and the
 module are built when the config enables them. Channels-last (B, T, C),
 masks throughout; parameter names follow the JAX tree
 (`weights/from_jax.py`).
+
+`apply_flow_encoder_chunk` is the streaming form (the reference's
+forward_chunk): one chunk of tokens at a time over a
+`FlowEncoderStreamState` of fixed-capacity KV caches and the two convs'
+left-context caches; chained chunks equal `apply_flow_encoder(streaming=
+True)`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 from torch import nn
 
 from jyutvoice_tpu_torch.config import FlowEncoderConfig
 from jyutvoice_tpu_torch.nn import core
-from jyutvoice_tpu_torch.nn.attention import RelMHA, espnet_rel_pos_emb
+from jyutvoice_tpu_torch.nn.attention import RelMHA, espnet_rel_pos_emb, rel_mha_chunk
 
 Tensor = torch.Tensor
 
@@ -208,3 +215,129 @@ def apply_flow_encoder(
         h = apply_conformer_layer(layer, h, pos_emb_up, attn_bias_up, cfg, mask_up)
     h = model.encoder_proj(model.after_norm(h))
     return h, up_lengths
+
+
+# ---------------------------------------------------------------------------
+# Streaming: one chunk at a time over KV caches
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FlowEncoderStreamState:
+    """Fixed-shape streaming state. Keys and values live in pre-allocated
+    (B, H, T_max, D) caches written at `offset`; the pre-lookahead conv2
+    and the upsample conv carry exactly the left context they need."""
+
+    offset: int  # tokens already consumed
+    conv2_cache: Tensor  # (B, 2, d) pre-lookahead conv2 left context
+    enc_kv: List[dict]  # per block {"k", "v"}: (B, H, T_max, D)
+    up_conv_cache: Tensor  # (B, 2 * stride, d) repeated-signal left context
+    up_kv: List[dict]  # per up block, capacity stride * T_max
+
+
+def init_stream_state(
+    cfg: FlowEncoderConfig, t_max: int, b: int = 1, dtype=torch.float32, chunk: int = 0,
+    device="cpu",
+) -> FlowEncoderStreamState:
+    """t_max is the token capacity. Every chunk writes its full padded width
+    into the caches, so the capacity must be a multiple of the chunk: pass
+    `chunk` to round t_max up to one."""
+    if chunk > 0:
+        t_max = -(-t_max // chunk) * chunk
+    d, h, s = cfg.output_size, cfg.attention_heads, cfg.upsample_stride
+
+    def kv(cap):
+        return {k: torch.zeros((b, h, cap, d // h), dtype=dtype, device=device)
+                for k in ("k", "v")}
+
+    return FlowEncoderStreamState(
+        offset=0,
+        conv2_cache=torch.zeros((b, 2, d), dtype=dtype, device=device),
+        enc_kv=[kv(t_max) for _ in range(cfg.num_blocks)],
+        up_conv_cache=torch.zeros((b, 2 * s, d), dtype=dtype, device=device),
+        up_kv=[kv(s * t_max) for _ in range(cfg.num_up_blocks)],
+    )
+
+
+def _chunk_conformer_stack(layers, h: Tensor, pos_band: Tensor, kv_caches, offset: int,
+                           attn_bias: Tensor, n_heads: int) -> Tuple[Tensor, list]:
+    new_kv = []
+    for layer, cache in zip(layers, kv_caches):
+        y, cache = rel_mha_chunk(layer.attn, layer.norm_mha(h, eps=1e-12), pos_band, cache,
+                                 offset, attn_bias, n_heads)
+        h = h + y
+        h = h + layer.ff(layer.norm_ff(h, eps=1e-12))
+        new_kv.append(cache)
+    return h, new_kv
+
+
+def _embed_tokens(model: FlowEncoder, tokens: Tensor, n_valid: int) -> Tensor:
+    """The token embedding and the linear embed, zero past n_valid."""
+    valid = (torch.arange(tokens.shape[1], device=tokens.device) < n_valid)[None, :, None]
+    emb = model.input_embedding(torch.clamp(tokens, min=0).long()) * valid
+    h = model.embed.norm(model.embed.linear(emb)) * math.sqrt(model.cfg.output_size)
+    return h * valid
+
+
+def apply_flow_encoder_chunk(
+    model: FlowEncoder, tokens: Tensor, chunk_len: int, context: Tensor, context_len: int,
+    state: FlowEncoderStreamState,
+) -> Tuple[Tensor, FlowEncoderStreamState]:
+    """One streaming step: (B, c) tokens -> (B, c * stride, 80) hidden frames.
+
+    tokens: the chunk, zero-padded past chunk_len (only the last chunk is
+    partial); context (B, pre_lookahead_len): the next chunk's first tokens,
+    context_len of them valid (0 at the end). The lookahead conv sees
+    [chunk | context], the causal conv2 and the upsample conv continue from
+    their caches, and attention sees every cached key plus the chunk. The KV
+    caches are written in place; the returned state holds them."""
+    cfg = model.cfg
+    if cfg.use_cnn_module or cfg.macaron_style:
+        raise NotImplementedError(
+            "apply_flow_encoder_chunk supports the live FlowEncoder config "
+            "(no conv module / macaron, reference infer.py:55-56); use "
+            "apply_conformer_layer with cnn_cache for layer-level streaming "
+            "of CosyVoice2-style conformer configs"
+        )
+    c = tokens.shape[1]
+    s = cfg.upsample_stride
+    t_max = state.enc_kv[0]["k"].shape[2]
+    offset = state.offset
+    if offset + c > t_max:
+        raise ValueError(f"stream exceeds capacity: chunk ends at {offset + c} tokens > "
+                         f"t_max={t_max}")
+
+    h = _embed_tokens(model, tokens, chunk_len)
+    ctx = _embed_tokens(model, context, context_len)
+    # pre-lookahead: conv1 over [chunk | next chunk's context], conv2 causal
+    # across chunks through its 2-frame cache
+    pre = model.pre_lookahead
+    g = core.leaky_relu(pre.conv1(torch.cat([h, ctx], dim=1), padding="valid"), 0.01)
+    g_ext = torch.cat([state.conv2_cache.to(g.dtype), g], dim=1)
+    new_conv2_cache = g_ext[:, -2:]
+    h = pre.conv2(g_ext, padding="valid") + h
+
+    dev = h.device
+    pos_band = espnet_rel_pos_emb(t_max, cfg.output_size, device=dev)
+    key_ok = torch.arange(t_max, device=dev)[None, None, None, :] < offset + chunk_len
+    h, enc_kv = _chunk_conformer_stack(model.encoders, h, pos_band, state.enc_kv, offset,
+                                       core.mask_to_bias(key_ok), cfg.attention_heads)
+
+    # the upsample conv across chunk boundaries through the repeated signal
+    ext = torch.cat([state.up_conv_cache.to(h.dtype), torch.repeat_interleave(h, s, dim=1)],
+                    dim=1)
+    new_up_conv_cache = ext[:, -2 * s :]
+    hu = model.up_conv(ext, padding="valid")  # (B, c * s, d)
+    hu = model.up_embed.norm(model.up_embed.linear(hu)) * math.sqrt(cfg.output_size)
+
+    up_cap = state.up_kv[0]["k"].shape[2]
+    pos_band_up = espnet_rel_pos_emb(up_cap, cfg.output_size, device=dev)
+    key_ok_up = torch.arange(up_cap, device=dev)[None, None, None, :] < (offset + chunk_len) * s
+    hu, up_kv = _chunk_conformer_stack(model.up_encoders, hu, pos_band_up, state.up_kv,
+                                       offset * s, core.mask_to_bias(key_ok_up),
+                                       cfg.attention_heads)
+    hu = model.encoder_proj(model.after_norm(hu))
+    return hu, FlowEncoderStreamState(
+        offset=offset + chunk_len, conv2_cache=new_conv2_cache, enc_kv=enc_kv,
+        up_conv_cache=new_up_conv_cache, up_kv=up_kv,
+    )

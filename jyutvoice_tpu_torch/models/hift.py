@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,12 +141,25 @@ def _ola_inv_envelope(t_frames: int, n_fft: int, hop: int) -> np.ndarray:
     return (1.0 / np.maximum(env.reshape(-1), 1e-11)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _on_device(make, args: tuple, device: torch.device) -> Tuple[Tensor, ...]:
+    """The arrays of make(*args) as float32 tensors on `device`, copied there
+    once: a copy per call would make every vocoder call wait for the device
+    (a blocking host-to-device copy synchronizes the stream). Made outside
+    inference mode, so autograd may use them."""
+    arrays = make(*args)
+    arrays = arrays if isinstance(arrays, tuple) else (arrays,)
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+                     for a in arrays)
+
+
 def small_stft(x: Tensor, n_fft: int, hop: int) -> Tuple[Tensor, Tensor]:
     """torch.stft(center=True) semantics: (B, L) -> (B, T, n_bins) re, im."""
     pad = n_fft // 2
     x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0]
     frames = core.frame_signal(x, n_fft, hop)
-    cos_m, sin_m = (torch.from_numpy(m).to(x.device) for m in _small_dft_matrices(n_fft))
+    cos_m, sin_m = _on_device(_small_dft_matrices, (n_fft,), x.device)
     return frames @ cos_m, frames @ sin_m
 
 
@@ -154,14 +167,14 @@ def small_istft(re: Tensor, im: Tensor, n_fft: int, hop: int) -> Tensor:
     """torch.istft(center=True) semantics: (B, T, n_bins) -> (B, (T-1)*hop)."""
     r = n_fft // hop
     b, t_frames, _ = re.shape
-    c, s = (torch.from_numpy(m).to(re.device) for m in _small_idft_matrices(n_fft))
-    window = torch.from_numpy(_hann(n_fft).astype(np.float32)).to(re.device)
+    c, s = _on_device(_small_idft_matrices, (n_fft,), re.device)
+    (window,) = _on_device(_hann, (n_fft,), re.device)
     frames = (re @ c + im @ s) * window  # (B, T, n_fft)
     # frame m covers hop-groups m..m+r-1: part k of frame m lands in group m+k
     y = torch.zeros((b, t_frames - 1 + r, hop), dtype=torch.float32, device=re.device)
     for k in range(r):
         y[:, k : k + t_frames] += frames[:, :, k * hop : (k + 1) * hop]
-    inv_env = torch.from_numpy(_ola_inv_envelope(t_frames, n_fft, hop)).to(re.device)
+    (inv_env,) = _on_device(_ola_inv_envelope, (t_frames, n_fft, hop), re.device)
     y = y.reshape(b, -1) * inv_env
     half = n_fft // 2
     return y[:, half:-half]
@@ -327,9 +340,17 @@ def _source(model: HiFT, mel: Tensor) -> Tensor:
     return model.m_source(f0_up, model.cfg)
 
 
-def hift_inference(model: HiFT, mel: Tensor) -> Tuple[Tensor, Tensor]:
-    """mel (B, T, 80) -> (wav (B, 480T), source (B, 480T, 1))."""
+def hift_inference(
+    model: HiFT, mel: Tensor, cache_source: Optional[Tensor] = None
+) -> Tuple[Tensor, Tensor]:
+    """mel (B, T, 80) -> (wav (B, 480T), source (B, 480T, 1)).
+
+    cache_source (B, L, 1), the streaming source cache: it replaces the
+    first L source samples before the decode (zeros included, as on a
+    stream's first chunk), so consecutive chunks continue one sine phase."""
     s = _source(model, mel)
+    if cache_source is not None and cache_source.shape[1] > 0:
+        s = torch.cat([cache_source.to(s.dtype), s[:, cache_source.shape[1] :]], dim=1)
     return hift_decode(model, mel, s), s
 
 

@@ -1,7 +1,8 @@
 """Attention: masked SDPA, partial-RoPE self-attention (text encoder), the
 plain diffusers-style attention of the CFM estimator, the banded
 (chunk-local) attention of the long-form gate and the ESPnet
-relative-position attention of the flow encoder.
+relative-position attention of the flow encoder, whole or one chunk at a
+time over a KV cache (`rel_mha_chunk`).
 
 The counterpart of the JAX package's `nn/attention.py`. The modules take and
 return channels-last (B, T, C); heads are split internally.
@@ -10,7 +11,7 @@ return channels-last (B, T, C); heads are split internally.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -307,3 +308,47 @@ def rel_mha(
         scores = scores + attn_bias
     probs = torch.softmax(scores, dim=-1)
     return attn.o(merge_heads(torch.einsum("bhqk,bhkd->bhqd", probs, v)))
+
+
+def rel_mha_chunk(
+    attn: RelMHA, x: Tensor, pos_band: Tensor, kv_cache: dict, offset: int,
+    attn_bias: Optional[Tensor], n_heads: int,
+) -> Tuple[Tensor, dict]:
+    """Relative-position self-attention of one chunk over a fixed-capacity
+    KV cache, the counterpart of the JAX package's `rel_mha_chunk`.
+
+    x (B, c, C) is the chunk at absolute positions [offset, offset + c);
+    pos_band (2 T_max - 1, C) = espnet_rel_pos_emb(T_max); kv_cache
+    {"k", "v"}: (B, H, T_max, D), written in place at `offset` (a host int:
+    the caller guarantees offset + c <= T_max, where the JAX package's
+    dynamic_update_slice would clamp); attn_bias broadcastable to
+    (B, H, c, T_max), masking keys at j >= offset + c. Returns
+    (out (B, c, C), the cache).
+
+    Query i sits at offset + i, so its distance to key j is offset + i - j;
+    band column l encodes the distance T_max - 1 - l, so the (c, T_max)
+    block starts at column T_max - c - offset, then the usual shift
+    out[i, j] = band[i, (c - 1) - i + j]."""
+    _, c_len, ch = x.shape
+    d_k = ch // n_heads
+    t_max = kv_cache["k"].shape[2]
+    if not 0 <= offset <= t_max - c_len:
+        raise ValueError(f"rel_mha_chunk: chunk [{offset}, {offset + c_len}) is past the "
+                         f"cache capacity {t_max}")
+    q = split_heads(attn.q(x), n_heads)  # (B, H, c, D)
+    kv_cache["k"][:, :, offset : offset + c_len] = split_heads(attn.k(x), n_heads)
+    kv_cache["v"][:, :, offset : offset + c_len] = split_heads(attn.v(x), n_heads)
+    start = t_max - c_len - offset
+    # only the band's columns are projected: the rest of bd is never read
+    pm = split_heads(attn.pos(pos_band[None, start : start + t_max + c_len - 1]), n_heads)[0]
+    q_u = q + attn.pos_bias_u[None, :, None, :]
+    q_v = q + attn.pos_bias_v[None, :, None, :]
+    matrix_ac = torch.einsum("bhqd,bhkd->bhqk", q_u, kv_cache["k"])  # (B, H, c, T_max)
+    band = torch.einsum("bhqd,hkd->bhqk", q_v, pm)  # (B, H, c, T_max + c - 1)
+    matrix_bd = rel_shift_gather(band, c_len, t_max)
+    scores = (matrix_ac + matrix_bd) / math.sqrt(d_k)
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, kv_cache["v"])
+    return attn.o(merge_heads(out)), kv_cache

@@ -14,17 +14,19 @@ the kaldi fbank and whisper mel unless `device_dsp` is on, run on the host,
 as in the JAX package. Lengths are padded to geometric buckets and every
 model masks its padding, so a bucketed run equals the exact-length one.
 Without a CAM++ or tokenizer artifact the extractor returns a zero speaker
-embedding and no tokens (no prompt_h), as the JAX package does. Not
-ported: the onnxruntime backends (so an artifact that the native models
-cannot read raises, where the JAX package would fall back to onnxruntime)
-and the JAX package's `streaming_encoder=True` (the KV-cached streaming
-encoder).
+embedding and no tokens (no prompt_h), as the JAX package does.
+`streaming_encoder=True` encodes the tokens with the KV-cached
+`StreamingTokenEncoder` (`pipeline/streaming.py`) one chunk at a time,
+through the per-component path. Not ported: the onnxruntime backends (so an
+artifact that the native models cannot read raises, where the JAX package
+would fall back to onnxruntime).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Optional
 
 import numpy as np
@@ -158,12 +160,21 @@ class PromptExtractor:
         campplus_onnx: Optional[str] = None,
         tokenizer_onnx: Optional[str] = None,
         tokenizer_torch: Optional[str] = None,
+        streaming_encoder: bool = False,
+        streaming_t_max: int = 1024,
         device_dsp: bool = False,
         device="cuda",
         campplus_params: Optional[dict] = None,
         tokenizer_params: Optional[dict] = None,
     ):
         self.device = _prepare_device(device)
+        # incremental KV-cached token encoding (streaming_t_max tokens of
+        # capacity); the encoder is stateful, so extractions share it under
+        # a lock
+        self.streaming_encoder = streaming_encoder
+        self.streaming_t_max = streaming_t_max
+        self._stream_encoder = None
+        self._stream_lock = threading.Lock()
         self.mel = MelSpec()
         # device_dsp: the kaldi fbank and whisper mel run in the batched
         # device computation (matmul DFT) instead of per row on the host
@@ -180,7 +191,10 @@ class PromptExtractor:
             ).to(self.device).eval()
 
     def __call__(self, audio: np.ndarray, sr: int) -> PromptFeatures:
-        """One row of `extract_batch`: one batched pass on the device."""
+        """One row of `extract_batch`: one batched pass on the device; with
+        streaming_encoder, the per-component path."""
+        if self.streaming_encoder:
+            return self._extract_single(audio, sr)
         out = self.extract_batch([audio], [sr])[0]
         if isinstance(out, Exception):
             raise out
@@ -191,8 +205,9 @@ class PromptExtractor:
 
     @torch.inference_mode()
     def _extract_single(self, audio: np.ndarray, sr: int) -> PromptFeatures:
-        """Per-component extraction, one model at a time: the independent
-        reference that the batched path is tested against."""
+        """Per-component extraction, one model at a time: the streaming
+        encoder's path, and the independent reference that the batched path
+        is tested against."""
         wav24 = resample_sinc(audio, sr, 24000)
         pad = (self.mel.n_fft - self.mel.hop) // 2
         if len(wav24) // self.mel.hop < 1 or len(wav24) <= pad:
@@ -204,7 +219,10 @@ class PromptExtractor:
         tokens = self.tokenizer(wav16)
         prompt_h = None
         if tokens is not None and self.flow_encoder is not None:
-            prompt_h = self._encode_tokens(tokens)
+            if self.streaming_encoder:
+                prompt_h = self._encode_tokens_streaming(tokens)
+            else:
+                prompt_h = self._encode_tokens(tokens)
             # the flow encoder upsamples tokens x2 to the mel frame rate;
             # min() is the reference's data-prep trim
             t = min(prompt_feat.shape[0], prompt_h.shape[0])
@@ -223,6 +241,19 @@ class PromptExtractor:
             torch.tensor([len(tokens)], device=self.device), exact_pad=True,
         )
         return h[0, : int(h_len[0])].cpu().numpy()
+
+    def _encode_tokens_streaming(self, tokens: np.ndarray) -> np.ndarray:
+        """speech tokens -> hidden states (T, 80) through the cached
+        KV-cached encoder: push every token, then flush."""
+        from jyutvoice_tpu_torch.pipeline.streaming import StreamingTokenEncoder
+
+        with self._stream_lock:
+            if self._stream_encoder is None:
+                self._stream_encoder = StreamingTokenEncoder(
+                    self.flow_encoder, t_max_tokens=self.streaming_t_max)
+            enc = self._stream_encoder
+            enc.reset()
+            return np.concatenate([enc.push(tokens), enc.flush()], axis=0)
 
     # ------------------------------------------------------------------
     # Batched extraction

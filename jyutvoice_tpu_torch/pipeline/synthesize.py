@@ -12,7 +12,8 @@ Past the largest mel bucket, `synthesize` hands the request to
 `synthesize_long`: the text half once (`prepare_stream`), then one CFM solve
 over the whole utterance at a 512-aligned length, where the estimator takes
 the long-form attention gates (banded, or kernel 3 for exact attention),
-then the windowed vocoder.
+then the windowed vocoder. `synthesize_streaming` runs the same text half,
+then yields the waveform chunk by chunk (`pipeline/streaming.py`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +114,7 @@ class Synthesizer:
         self.tts = load_jax_params(tts_mod.TTS(cfg.tts), params_tts).to(self.device).eval()
         self.hift = load_jax_params(hift_mod.HiFT(cfg.hift), params_hift).to(self.device).eval()
         self.noise = rand_noise(device=self.device)
+        self._streams: dict = {}  # (chunk, prompt capacity, steps, masks) -> StreamingSynthesizer
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -286,6 +288,50 @@ class Synthesizer:
                 "audio_seconds": audio_seconds,
             },
         )
+
+    def synthesize_streaming(
+        self,
+        text: str,
+        lang: str = "yue",
+        phone: Optional[str] = None,
+        spk_embed: Optional[np.ndarray] = None,
+        prompt_feat: Optional[np.ndarray] = None,
+        prompt_h: Optional[np.ndarray] = None,
+        chunk_frames: int = 100,
+        length_scale: float = 1.0,
+        n_timesteps: int = 10,
+        estimator_chunk_masks: bool = False,
+    ) -> Iterator[np.ndarray]:
+        """Generator of 24 kHz waveform chunks (chunk_frames * 480 samples,
+        the last one shorter): the text half once, then the CFM decoder and
+        the vocoder chunk by chunk with overlap caches, so the first chunk
+        comes after one chunk's decode. estimator_chunk_masks=True runs the
+        estimator with the 50-frame chunk masks. The prompt is padded to a
+        prompt bucket (it right-aligns in it), so one streaming synthesizer
+        per (chunk, bucket, steps, masks) serves every prompt length."""
+        from jyutvoice_tpu_torch.pipeline.streaming import StreamingSynthesizer
+
+        if (prompt_feat is None) != (prompt_h is None):
+            raise ValueError(PROMPT_PAIR_ERROR)
+        mu_y, c, y_len = self.prepare_stream(
+            text, lang=lang, phone=phone, spk_embed=spk_embed, length_scale=length_scale,
+        )
+        p_len = 0 if prompt_feat is None else prompt_feat.shape[0]
+        p_cap = bkt.pick_bucket(p_len, bkt.PROMPT_BUCKETS[1:]) if p_len else 0
+        key = (chunk_frames, p_cap, n_timesteps, estimator_chunk_masks)
+        if key not in self._streams:
+            self._streams[key] = StreamingSynthesizer(
+                self.cfg, self.tts, self.hift, chunk_frames=chunk_frames,
+                prompt_frames=p_cap, n_timesteps=n_timesteps,
+                estimator_chunk_masks=estimator_chunk_masks, device=self.device,
+            )
+        total, want = 0, y_len * self.cfg.hift.total_upsample
+        for chunk in self._streams[key].stream(mu_y, c, prompt_feat, prompt_h):
+            emit = min(len(chunk), want - total)
+            if emit <= 0:
+                break
+            yield chunk[:emit]
+            total += emit
 
     @torch.inference_mode()
     def synthesize_long(

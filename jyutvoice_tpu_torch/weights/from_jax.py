@@ -142,3 +142,29 @@ def load_pytree_npz(path: str):
     """A parameter tree saved by the JAX package's `save_pytree_npz`."""
     with np.load(path) as data:
         return unflatten({k: data[k] for k in data.files})
+
+
+# ---------------------------------------------------------------------------
+# Streaming state
+# ---------------------------------------------------------------------------
+
+
+def flow_stream_state_from_jax(state, device="cpu"):
+    """The JAX package's `FlowEncoderStreamState` (fields offset,
+    conv2_cache, enc_kv, up_conv_cache, up_kv; leaves as numpy arrays or
+    anything np.asarray takes) as this package's, on `device`: the same
+    layouts ((B, 2, d) conv cache, (B, H, T_max, D) keys and values), the
+    offset a host int. A stream started in one package continues in the
+    other."""
+    from jyutvoice_tpu_torch.models.flow_encoder import FlowEncoderStreamState
+
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    def kv(caches):
+        return [{"k": t(c["k"]), "v": t(c["v"])} for c in caches]
+
+    return FlowEncoderStreamState(
+        offset=int(np.asarray(state.offset)), conv2_cache=t(state.conv2_cache),
+        enc_kv=kv(state.enc_kv), up_conv_cache=t(state.up_conv_cache), up_kv=kv(state.up_kv),
+    )

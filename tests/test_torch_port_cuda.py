@@ -12,6 +12,11 @@ preparation equal to its plain version (lse2 to float rounding). The
 voice-cloning extractor at full width on the card against the CPU: the
 24 kHz mel energies atol 1e-5 / rtol 1e-3, spk_embed and prompt_h
 max |err| / max |ref| <= 1e-2, at least 90 % of the speech tokens equal.
+Streaming: kernel 1 and kernel 2 at the streaming shapes to the bars
+above (kernel 1 also writing 0 on a length-0 row, a free session slot's);
+a small `StreamingSynthesizer` on the card against the CPU (per chunk mel
+MAE < 1e-2) and the multi-session lane against the single stream on the
+card (1e-4 of max |ref|).
 """
 
 import pytest
@@ -207,19 +212,23 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                        kernel_sizes=(3,), dilations=(1,))
 
 
-def _small_synth(cuda):
-    from jyutvoice_tpu_torch import config as port_config
-    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
-    from jyutvoice_tpu_torch.weights import random_init
+def _small_synth_cfg():
+    from jyutvoice_tpu_torch import config as m
 
-    m = port_config
-    cfg = m.JyutVoiceConfig(  # the parity tests' small configuration
+    return m.JyutVoiceConfig(  # the parity tests' small configuration
         tts=m.TTSConfig(
             encoder=m.TextEncoderConfig(n_layers=1, filter_channels=64),
             cfm=m.CFMConfig(estimator=m.EstimatorConfig(n_blocks=1, num_mid_blocks=1)),
         ),
         hift=m.HiFTConfig(base_channels=64),
     )
+
+
+def _small_synth(cuda):
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+    from jyutvoice_tpu_torch.weights import random_init
+
+    cfg = _small_synth_cfg()
     return Synthesizer(cfg, random_init.init_tts_tree(cfg.tts),
                        random_init.init_hift_tree(cfg.hift), device=cuda)
 
@@ -552,3 +561,98 @@ def test_infer_cli_ref_audio_runs_on_the_card(cuda, tmp_path, monkeypatch):
     est = cfg.tts.cfm.estimator
     assert kernels.LAUNCHES["flash_attention"] == 2 * (est.num_mid_blocks + 2) * est.n_blocks
     assert kernels.LAUNCHES["resblock_stage"] == 3
+
+
+# ---------------------------------------------------------------------------
+# streaming
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "t,lengths,chunk",
+    [  # chunk 100: seg = 34 + 100 = 134; the first chunk has 100 valid rows,
+       # a final partial one fewer; the CFG-doubled batch of one stream
+     (134, [134, 134], 0), (134, [100, 100], 0), (134, [61, 61], 0),
+     # chunk 50 with the estimator's 50-frame masks: seg = 84
+     (84, [84, 84], 50), (84, [40, 40], 50), (134, [134, 134], 50),
+     # the multi-session lane: 2S = 8 rows, sessions at different points,
+     # a free slot (length 0) in both CFG halves
+     (134, [134, 100, 0, 57, 134, 100, 0, 57], 0),
+     (134, [134, 100, 0, 57, 134, 100, 0, 57], 50),
+     (84, [84, 0, 40, 84, 84, 0, 40, 84], 50)],
+)
+def test_flash_kernel_at_streaming_shapes(cuda, t, lengths, chunk):
+    from jyutvoice_tpu_torch.nn.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(len(lengths), t, 8, 64, device=cuda, generator=g) for _ in range(3))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(scale=0.125, chunk_size=chunk, num_left_chunks=-1)
+    out = flash_attention(q, k, v, lens, **kw)
+    ref = flash_attention_plain(q, k, v, lens, **kw)
+    assert torch.isfinite(out).all()
+    for i, n in enumerate(lengths):
+        torch.testing.assert_close(out[i, :n], ref[i, :n], atol=5e-3, rtol=2e-2)
+        if n == 0:  # a free slot: every query row sees no key
+            assert torch.all(out[i] == 0)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("c,t", [(128, 6720), (64, 20161)])
+def test_resblock_stage_at_streaming_shapes(cuda, c, t, b):
+    """A chunk-100 vocoder segment (168 frames) at its two kernel stages,
+    one stream (batch 1) and four sessions."""
+    from jyutvoice_tpu_torch.nn.resblock_stage import resblock_stage, resblock_stage_plain
+
+    ks = (3, 7, 11)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = _stage_weights(g, c, ks, FULL_DIL)
+    x = torch.randn(b, t, c, device=cuda, generator=g) * 0.5
+    kw = dict(kernel_sizes=ks, dilations=FULL_DIL)
+    torch.testing.assert_close(
+        resblock_stage(x, w, **kw), resblock_stage_plain(x, w, **kw), atol=2e-5, rtol=1e-4
+    )
+
+
+def _small_trees():
+    from jyutvoice_tpu_torch.weights import random_init
+
+    cfg = _small_synth_cfg()
+    return cfg, random_init.init_tts_tree(cfg.tts), random_init.init_hift_tree(cfg.hift)
+
+
+def test_streaming_on_the_card_matches_the_cpu(cuda):
+    """A 3-chunk stream (chunk 50) on the card through kernels 1 and 2
+    against the same on the CPU; the multi-session lane against the single
+    stream on the card."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.pipeline.streaming import (
+        MultiStreamSynthesizer,
+        StreamingSynthesizer,
+    )
+
+    cfg, tt, th = _small_trees()
+    rng = np.random.default_rng(0)
+    mu = rng.standard_normal((130, 80)).astype(np.float32)
+    spk = rng.standard_normal(80).astype(np.float32)
+    kw = dict(chunk_frames=50, n_timesteps=2)
+    card = StreamingSynthesizer(cfg, tt, th, device=cuda, **kw)
+    cpu = StreamingSynthesizer(cfg, tt, th, device="cpu", **kw)
+    kernels.reset_launch_counts()
+    got = list(card.stream(mu, spk, emit_mel=True))
+    est = cfg.tts.cfm.estimator
+    assert kernels.LAUNCHES["flash_attention"] == 3 * 2 * (est.num_mid_blocks + 2) * est.n_blocks
+    assert kernels.LAUNCHES["resblock_stage"] == 3 * 3  # base 64: three stages a chunk
+    want = list(cpu.stream(mu, spk, emit_mel=True))
+    assert [w.shape for w, _ in got] == [w.shape for w, _ in want] and len(got) == 3
+    for (w, m), (w_ref, m_ref) in zip(got, want):
+        assert np.abs(m - m_ref).mean() < 1e-2 and np.isfinite(w).all()
+    mu2 = rng.standard_normal((80, 80)).astype(np.float32)
+    multi = MultiStreamSynthesizer(cfg, tt, th, max_sessions=3, device=cuda, **kw)
+    out = multi.run_all([(mu, spk), (mu2, spk)])
+    for o, m in zip((out[0], out[1]), (mu, mu2)):
+        ref = np.concatenate(list(card.stream(m, spk)))
+        assert o.shape == ref.shape
+        assert np.abs(o - ref).max() <= 1e-4 * np.abs(ref).max()

@@ -1,7 +1,7 @@
 """The port stands alone: no module of `jyutvoice_tpu_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package or names a path into it, the
 port reads its own copy of the LTS rule table (and of the modules it copies
-byte for byte), and it synthesizes, trains and clones a voice in a process
+byte for byte), and it synthesizes, streams, trains and clones a voice in a process
 where JAX and the JAX package are import-blocked."""
 
 import ast
@@ -205,3 +205,40 @@ def test_port_clones_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_CLONES_STANDALONE_OK" in proc.stdout
+
+
+_STREAM_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+from jyutvoice_tpu_torch.config import FlowEncoderConfig
+from jyutvoice_tpu_torch.models.flow_encoder import FlowEncoder
+from jyutvoice_tpu_torch.pipeline.streaming import MultiStreamSynthesizer, StreamingTokenEncoder
+from jyutvoice_tpu_torch.weights import from_jax, random_init
+
+s = Synthesizer(cfg, init_tts_tree(cfg.tts), init_hift_tree(cfg.hift), device="cpu")
+chunks = list(s.synthesize_streaming("佢係邊個", phone="keoi5 hai6 bin1 go3", chunk_frames=50,
+                                     n_timesteps=2, length_scale=3.0))
+assert len(chunks) >= 2 and all(np.isfinite(c).all() for c in chunks)
+mu_y, c, y_len = s.prepare_stream("佢", phone="keoi5")
+ms = MultiStreamSynthesizer(cfg, s.tts, s.hift, max_sessions=2, chunk_frames=50, n_timesteps=2,
+                            device="cpu")
+out = ms.run_all([(mu_y, c)])
+assert out[0].shape == (y_len * 480,)
+fe = FlowEncoderConfig(input_size=64, output_size=64, attention_heads=2, linear_units=128,
+                       num_blocks=2, num_up_blocks=1)
+enc = StreamingTokenEncoder(from_jax.load_jax_params(
+    FlowEncoder(fe), random_init.init_flow_encoder_tree(fe)).eval(), t_max_tokens=64)
+h = np.concatenate([enc.push(np.arange(40) % 300), enc.flush()])
+assert h.shape == (80, 80) and np.isfinite(h).all()
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_STREAMS_STANDALONE_OK", len(chunks))
+"""
+
+
+def test_port_streams_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _STREAM_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_STREAMS_STANDALONE_OK" in proc.stdout

@@ -125,7 +125,11 @@ def test_attention_route_order():
     assert route(cfg, 1536, 0) == "flash"
     assert route(cfg, 4096, 50) == "flash"  # the streaming chunk rule
     assert route(dataclasses.replace(cfg, banded_long_threshold=8192), 4096, 0) == "flash_stock"
-    assert route(dataclasses.replace(cfg, attention_backend="xla_scores"), 4096, 0) == "flash"
+    # "xla_scores" builds its bias from the mask itself: no length-based
+    # kernel may take it (a prompted stream's mask is front-padded)
+    assert route(dataclasses.replace(cfg, attention_backend="xla_scores"), 4096, 0) == "plain"
+    assert route(dataclasses.replace(cfg, attention_backend="xla_scores"), 134, 50,
+                 on_cuda=False) == "plain"
     # the gates are taken on CUDA only; an explicit banded backend everywhere
     assert route(cfg, 4096, 0, on_cuda=False) == "flash"
     assert route(cfg, 4096, 0, "exact", on_cuda=False) == "flash"
