@@ -1277,13 +1277,14 @@ def phase_stream_kernels(synth, smi):
 def _stream_chunks(gen, est):
     """Drive a chunk generator: per chunk its host ms (fenced) and launches;
     fails unless each chunk launched kernel 1 `est` times and kernel 2
-    twice. Returns (chunks, per-chunk ms, ms to the first chunk)."""
+    twice. Returns (chunks, per-chunk ms); the first includes everything
+    before the first chunk (the text half)."""
     import torch
 
     from jyutvoice_tpu_torch import kernels
 
     chunks, ms = [], []
-    t0 = t = time.perf_counter()
+    t = time.perf_counter()
     while True:
         kernels.reset_launch_counts()
         try:
@@ -1300,7 +1301,7 @@ def _stream_chunks(gen, est):
             fail(f"stream chunk {len(chunks)} launched {launches} (want flash_attention {est}, "
                  "resblock_stage 2)")
         chunks.append(chunk)
-    return chunks, ms, ms[0] if ms else float("nan")
+    return chunks, ms
 
 
 def phase_stream(synth, scale, clone_feats, trees, wav24, params_tts, params_hift, smi):
@@ -1343,14 +1344,13 @@ def phase_stream(synth, scale, clone_feats, trees, wav24, params_tts, params_hif
         t0 = time.perf_counter()
         gen = synth.synthesize_streaming(**yue, length_scale=scale, chunk_frames=100,
                                          n_timesteps=10, **kw)
-        chunks, ms, _ = _stream_chunks(gen, want_k1)
+        chunks, ms = _stream_chunks(gen, want_k1)
         total_s = time.perf_counter() - t0
         wav = np.concatenate(chunks)
         audio_s = len(wav) / 24000
-        first = sum(ms[:1])  # the generator's first next() includes the text half
         ok = np.isfinite(wav).all() and wav.shape == (y_len * 480,)
         log(f"stream {label}: {len(chunks)} chunks, {y_len} frames, wav {wav.shape[0]} samples, "
-            f"first chunk {first:.1f} ms, per chunk median {np.median(ms):.1f} ms "
+            f"first chunk {ms[0]:.1f} ms, per chunk median {np.median(ms):.1f} ms "
             f"(all: {', '.join(f'{m:.1f}' for m in ms)}), total {total_s * 1e3:.1f} ms, "
             f"rtf {total_s / audio_s:.4f}, launches per chunk flash_attention {want_k1} "
             f"resblock_stage 2, finite={bool(np.isfinite(wav).all())} ({smi})")
@@ -1615,6 +1615,16 @@ def phase_long_reference(synth, params_tts, params_hift):
             fail(f"the card's long-form output ({label}) does not agree with the CPU")
 
 
+PHASE_S = {}  # phase name -> wall seconds, printed before the result
+
+
+def timed(name, fn, *args, **kw):
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = round(time.perf_counter() - t, 1)
+    return out
+
+
 def main():
     import torch
 
@@ -1625,8 +1635,9 @@ def main():
     from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
     from jyutvoice_tpu_torch.weights import random_init
 
+    t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    timed("build", phase_build)
 
     cfg = JyutVoiceConfig()
     t = time.perf_counter()
@@ -1636,18 +1647,19 @@ def main():
     log(f"full-width Synthesizer (random weights, seeds 0/1) ready in {time.perf_counter() - t:.1f} s")
 
     warm_card()
-    flash = phase_flash()
-    stock = phase_flash_stock()
-    bwd = phase_flash_stock_bwd()
-    stage = phase_stage(synth)
-    main_results, counts, scale = phase_main_path(synth)
-    phase_reference(synth, params_tts, params_hift)
-    clone_counts, clone_feats, clone_trees, clone_wav = phase_clone(
-        synth, main_results["yue+phone@512"].wav, scale, smi)
+    flash = timed("3 flash", phase_flash)
+    stock = timed("4 flash_stock", phase_flash_stock)
+    bwd = timed("8 flash_stock_bwd", phase_flash_stock_bwd)
+    stage = timed("5 stage", phase_stage, synth)
+    main_results, counts, scale = timed("6 main path", phase_main_path, synth)
+    timed("6 reference", phase_reference, synth, params_tts, params_hift)
+    clone_counts, clone_feats, clone_trees, clone_wav = timed(
+        "6b clone", phase_clone, synth, main_results["yue+phone@512"].wav, scale, smi)
     counts = {k: counts[k] + clone_counts[k] for k in counts}
-    stream_err, stream_stage_err, stream_flash, stream_stage = phase_stream_kernels(synth, smi)
-    stream_counts = phase_stream(synth, scale, clone_feats, clone_trees, clone_wav, params_tts,
-                                 params_hift, smi)
+    stream_err, stream_stage_err, stream_flash, stream_stage = timed(
+        "6c stream kernels", phase_stream_kernels, synth, smi)
+    stream_counts = timed("6d stream", phase_stream, synth, scale, clone_feats, clone_trees,
+                          clone_wav, params_tts, params_hift, smi)
     counts = {k: counts[k] + stream_counts.get(k, 0) for k in counts}
     flash["max_abs_err"] = max(flash["max_abs_err"], stream_err)
     stage["max_abs_err"] = max(stage["max_abs_err"], stream_stage_err)
@@ -1663,12 +1675,12 @@ def main():
                  stream_pair_b4_ms=stream_stage[4]["ms"],
                  stream_pair_b4_plain_ms=stream_stage[4]["plain_ms"],
                  stream_pair_b4_bound_ms=stream_stage[4]["bound_ms"])
-    long_counts = phase_long_form(synth)
-    phase_long_reference(synth, params_tts, params_hift)
+    long_counts = timed("7 long form", phase_long_form, synth)
+    timed("7 reference", phase_long_reference, synth, params_tts, params_hift)
     del synth
     torch.cuda.empty_cache()
-    train_counts = phase_train()
-    phase_train_reference()
+    train_counts = timed("9 train", phase_train)
+    timed("9 reference", phase_train_reference)
     counts = {k: counts.get(k, 0) + long_counts.get(k, 0) + train_counts[k] for k in train_counts}
 
     line = {"kernels": [
@@ -1704,6 +1716,8 @@ def main():
                       "once per backward for kernels 4 and 5)",
              launches=counts["flash_stock_bwd_prep"], **bwd["prep"]),
     ]}
+    log(f"phase seconds: {json.dumps(PHASE_S)}, whole run "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -46,6 +46,7 @@ from jyutvoice_tpu_torch.models.flow_encoder import (
     apply_flow_encoder_chunk,
     init_stream_state,
 )
+from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32, to_pcm16
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 from jyutvoice_tpu_torch.weights.noise import rand_noise_extended
 
@@ -315,8 +316,6 @@ class StreamingSynthesizer:
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
-
             disable_tf32()
         self.tts = _as_module(params_tts, tts_mod.TTS, cfg.tts, self.device)
         self.hift = _as_module(params_hift, hift_mod.HiFT, cfg.hift, self.device)
@@ -407,7 +406,7 @@ class StreamingSynthesizer:
         # front of it are never emitted
         wav = wav[:, OVERLAP * spf : (OVERLAP + self.cap) * spf]
         if self.pcm16:
-            wav = torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+            wav = to_pcm16(wav)
         return wav, out, held, voc_tail, src
 
     def stream(
