@@ -35,10 +35,10 @@ Phases, each printing its own lines; any failure exits non-zero:
   5. kernel 2 (HiFT ResBlock stage, 3xTF32 on wgmma) against its plain
      version on every row at the 512-frame bucket's stages (C=128, T=20480)
      and (C=64, T=61441), batch 1 and 2, at the 15000-bucket request's
-     windowed pair (batch 7: C=128 at T=84480, C=64 at T=253441) and at T
-     no multiple of its tile, each with the kernel's and the plain
-     version's times, the 3xTF32 and f32 FFMA bounds and the recompute
-     factor;
+     windowed pair (its 8 windows of 2112 frames: batch 8, C=128 at
+     T=84480, C=64 at T=253441) and at T no multiple of its tile, each with
+     the kernel's and the plain version's times, the 3xTF32 and f32 FFMA
+     bounds and the recompute factor;
   6. the main path: a full-width Synthesizer with seeded random weights
      (default JyutVoiceConfig) answers 6 requests: one at the 512-frame mel
      bucket twice (cold, then warm), raw Cantonese text, Mandarin, one
@@ -80,6 +80,30 @@ Phases, each printing its own lines; any failure exits non-zero:
      PromptExtractor(streaming_encoder=True) and StreamingTokenEncoder on
      phase 6b's tokens against the whole streaming flow encoder (1e-4 of
      max |ref|); cli.infer --stream on its default device;
+  6e. kernels 1 and 2 at the serving shapes: kernel 1 at B = 2 b_pad (b_pad
+     8 and 4) at T=512 and 1024, a valid length per row, the unconditional
+     half repeating the conditional one and a padding row repeating row 0
+     (equal to it bit for bit), and a mixed group of cloned and plain rows
+     at T = 64 + 512, timed (events and CUDA-graph device time) beside
+     SDPA, the plain version and the bound; kernel 2 at the 512 pair at
+     batch 4 and 8 and the 1024 pair (C=128 T=40960, C=64 T=122881) at
+     batch 8, beside its plain version and bound;
+  6f. serving at full width, 10 steps, PCM16: ServingEngine(max_batch=8,
+     max_wait_ms=200) groups of 8 (one b_pad-8 dispatch, cold and warm), 3
+     (b_pad 4), 3 plain + 1 cloned (phase 6b's 250-frame prompt) and one
+     spanning two text partitions (two dispatches), each request against
+     direct synthesize (mel frames equal, mel MAE < 1e-2, the waveform gap
+     in PCM16 steps), every dispatch's launches checked (560 kernel 1, 2
+     kernel 2), the b_pad-8 group's wall time against the 8 requests one
+     by one; a long-form request through the engine's long route (exact,
+     kernel 3) against synthesize_long; StreamingLane with 4 streams against
+     single streams (1e-4 of max |ref|); TTSServer (streaming lane, phase
+     6b's extractor): /healthz names the card, 4 concurrent /tts coalesce
+     into one batch within 1 PCM16 step of the engine, one /tts/stream, one
+     ref_audio_b64 request twice (one extraction); `python -m
+     jyutvoice_tpu_torch.cli.serve --random-init --streaming --warmup` on
+     its default device answers /healthz and /tts and drains on SIGTERM
+     with exit code 0;
   7. the long-form path: synthesize_long with exact attention at 4096 frames
      (kernel 3), the same in auto mode (banded), exact with a 100-frame
      prompt (2560 frames in all, kernel 3), and synthesize past the
@@ -106,8 +130,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      then one deterministic step of a reduced-depth full-width model, its
      losses and trainable gradients on the card against the CPU.
 Launch counts are zeroed before and read after each request of phases 6,
-6b and 7, each streamed chunk and multi-session tick of phase 6d, and each
-training step of phase 9. The line before the last is a JSON
+6b and 7, each streamed chunk and multi-session tick of phase 6d, each
+engine group, lane run and HTTP block of phase 6f, and each training step
+of phase 9. The line before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
 available.
@@ -836,10 +861,11 @@ def phase_train_reference():
 def phase_stage(synth):
     """Kernel 2 against its plain version on every row, with the vocoder's
     stage weights: the 512-frame bucket's pair (C=128 at T=20480, C=64 at
-    T=61441) at batch 1 and 2, the 15000-bucket request's windowed pair
-    (batch 7: C=128 at T=84480, C=64 at T=253441) and ragged T; the kernel's
-    and the plain version's times, the 3xTF32 tensor-core and the f32 FFMA
-    bounds, and the kernel's recompute factor."""
+    T=61441) at batch 1 and 2, the 15000-bucket request's windowed pair (its
+    8 windows of 2112 frames: batch 8, C=128 at T=84480, C=64 at T=253441)
+    and ragged T; the kernel's and the plain version's times, the 3xTF32
+    tensor-core and the f32 FFMA bounds, and the kernel's recompute
+    factor."""
     import torch
 
     from jyutvoice_tpu_torch.nn import resblock_stage as rs
@@ -850,9 +876,9 @@ def phase_stage(synth):
     n = len(ks)
     g = torch.Generator(device="cuda").manual_seed(1)
     worst = 0.0
-    sums = {"512": {}, "windowed": {}}  # the B=1 512 pair and the B=7 windowed pair
+    sums = {"512": {}, "windowed": {}}  # the B=1 512 pair and the B=8 windowed pair
     cases = [("512", 1, 20480, 1), ("512", 2, 61441, 1), ("512", 1, 20480, 2),
-             ("512", 2, 61441, 2), ("windowed", 1, 84480, 7), ("windowed", 2, 253441, 7),
+             ("512", 2, 61441, 2), ("windowed", 1, 84480, 8), ("windowed", 2, 253441, 8),
              # T no multiple of the tile the wrapper picks
              ("ragged", 1, 5001, 1), ("ragged", 2, 15003, 2)]
     for label, stage, t, b in cases:
@@ -868,7 +894,7 @@ def phase_stage(synth):
         ok = within(out, ref, STAGE_TOL)
         worst = max(worst, err)
         del out, ref
-        big = b == 7
+        big = b == 8
         ms = cuda_time_ms(lambda: rs.resblock_stage_prepared(x, prepared), 3 if big else 10,
                           warmup=1)
         plain_ms = cuda_time_ms(lambda: rs.resblock_stage_plain(x, w, **kw), 2 if big else 5,
@@ -885,7 +911,7 @@ def phase_stage(synth):
             f"tflops={flops / ms / 1e9:.1f}")
         if not ok:
             fail(f"resblock stage disagrees with its plain version at C={c} T={t} B={b}")
-        if label in sums and b in (1, 7):
+        if label in sums and b in (1, 8):
             acc = sums[label]
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms),
                              ("bound_f32_ms", bound_f32_ms)):
@@ -1487,6 +1513,447 @@ def phase_stream(synth, scale, clone_feats, trees, wav24, params_tts, params_hif
     return counts
 
 
+def _cfg_rows(lens):
+    """A serving batch's rows as the CFG solve has them: the conditional
+    half, then the unconditional half repeating it."""
+    return list(lens) + list(lens)
+
+
+def phase_serve_kernels(synth, smi):
+    """Kernels 1 and 2 at the serving shapes. Kernel 1 at B = 2 b_pad (b_pad
+    8 and 4), H=8, D=64, T=512 and 1024, a different valid length on every
+    request row, the unconditional half repeating the conditional one, and
+    the last request row of each half a padding row repeating row 0 (its
+    output must equal row 0's); and a mixed group of cloned and plain rows
+    at T = 64 + 512 (a 64-frame prompt bucket). Each against its plain
+    version on the valid rows, timed by CUDA events and by CUDA-graph device
+    time beside SDPA, the plain version and the bound. Kernel 2 at the 512
+    pair (C=128 T=20480, C=64 T=61441) at batch 4 and 8 and the 1024 pair
+    (C=128 T=40960, C=64 T=122881) at batch 8, whole-bucket decodes, with
+    the vocoder's stage weights, against its plain version on every row,
+    beside its plain version's time and the 3xTF32 bound. CUDA-event
+    medians of 3 loops."""
+    import torch
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch.nn import resblock_stage as rs
+    from jyutvoice_tpu_torch.nn.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        key_keep_mask,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    h, d = 8, 64
+    cases = [  # (key, T, per-row lengths)
+        ("b16_t512", 512, _cfg_rows([512, 301, 488, 97, 460, 233, 412, 512])),
+        ("b16_t1024", 1024, _cfg_rows([1000, 611, 1024, 38, 777, 950, 402, 1000])),
+        ("b8_t512", 512, _cfg_rows([480, 129, 350, 480])),
+        ("b8_t1024", 1024, _cfg_rows([1024, 700, 222, 1024])),
+        # cloned rows 40 + mel, a plain row 0 + mel, in a 64 + 512 segment
+        ("b8_t576_mixed", 576, _cfg_rows([40 + 500, 311, 64 + 512, 40 + 500])),
+    ]
+    worst, flash = 0.0, {}
+    for key, t, lens in cases:
+        b = len(lens)
+        q, k, v = (torch.randn(b, t, h, d, device="cuda", generator=g) for _ in range(3))
+        pad = b // 2 - 1
+        for a in (q, k, v):
+            a[pad], a[b - 1] = a[0], a[b // 2]
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = flash_attention(q, k, v, lengths, scale=0.125)
+        ref = flash_attention_plain(q, k, v, lengths, scale=0.125)
+        torch.cuda.synchronize()
+        err, ok = 0.0, bool(torch.equal(out[pad], out[0]))
+        for i, n in enumerate(lens):
+            err = max(err, float((out[i, :n] - ref[i, :n]).abs().max()))
+            ok &= within(out[i, :n], ref[i, :n], ATTN_TOL)
+        worst = max(worst, err)
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125), 200)
+        dev_ms = graph_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125))
+        plain_ms = cuda_time_ms(
+            lambda: flash_attention_plain(q, k, v, lengths, scale=0.125), 10)
+        keep = key_keep_mask(lengths, t, 0, -1)
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep, scale=0.125), 200)
+        pairs = int(keep.expand(-1, -1, t, -1).sum()) * h
+        bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
+        log(f"serve flash B={b} T={t} lengths={lens}: max_abs_err={err:.3e} ok={ok} "
+            f"(padding row {pad} equal to row 0: {bool(torch.equal(out[pad], out[0]))}) "
+            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) ({smi})")
+        if not ok:
+            fail(f"flash attention disagrees with its plain version at the serving shape "
+                 f"B={b} T={t} lengths={lens}")
+        flash[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms)
+        del q, k, v, qt, kt, vt, keep, out, ref
+    torch.cuda.empty_cache()
+
+    cfg = synth.cfg.hift
+    ks = tuple(cfg.resblock_kernel_sizes)
+    dil = tuple(cfg.resblock_dilation_sizes[0])
+    n = len(ks)
+    stage, stage_worst = {}, 0.0
+    for key, t_mel, b in (("pair512_b4", 512, 4), ("pair512_b8", 512, 8),
+                          ("pair1024_b8", 1024, 8)):
+        acc = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+        for st, t in ((1, 40 * t_mel), (2, 120 * t_mel + 1)):
+            w = rs.pack_stage_weights(synth.hift.resblocks[st * n : (st + 1) * n], dil)
+            c = synth.hift.resblocks[st * n].convs1[0].weight.shape[0]
+            prepared = rs.prepare_stage_weights(w, c, ks, dil)
+            x = torch.randn(b, t, c, device="cuda", generator=g) * 0.5
+            out = rs.resblock_stage_prepared(x, prepared)
+            ref = rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            ok = within(out, ref, STAGE_TOL)
+            stage_worst = max(stage_worst, err)
+            del out, ref
+            ms = cuda_time_ms(lambda: rs.resblock_stage_prepared(x, prepared), 5, warmup=1)
+            plain_ms = cuda_time_ms(
+                lambda: rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil), 2,
+                warmup=1)
+            flops = b * t * c * c * 4 * len(dil) * sum(ks)
+            bound_ms, bound_by = bound(2 * x.numel() * 4 + w.numel() * 4, 3 * flops,
+                                       PEAK_TF32_FLOPS)
+            log(f"serve resblock_stage C={c} T={t} B={b}: max_abs_err={err:.3e} ok={ok} "
+                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                f"(3xTF32, {bound_by}) ({smi})")
+            if not ok:
+                fail(f"resblock stage disagrees with its plain version at the serving shape "
+                     f"C={c} T={t} B={b}")
+            for name, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                acc[name] += val
+            del x
+            torch.cuda.empty_cache()
+        stage[key] = acc
+        log(f"serve resblock_stage {key}: ms={acc['ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
+            f"bound_ms={acc['bound_ms']:.4f} ({smi})")
+    return worst, stage_worst, flash, stage
+
+
+SERVE_ITEMS = [  # 8 short Cantonese requests (one text partition), two with a speaker
+    dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3"),
+    dict(text="你 好", lang="yue", phone="nei5 hou2"),
+    dict(text="我 哋 去", lang="yue", phone="ngo5 dei6 heoi3"),
+    dict(text="好", lang="yue", phone="hou2"),
+    dict(text="今 日 天 氣 好", lang="yue", phone="gam1 jat6 tin1 hei3 hou2"),
+    dict(text="多 謝 晒", lang="yue", phone="do1 ze6 saai3"),
+    dict(text="早 晨", lang="yue", phone="zou2 san4"),
+    dict(text="食 咗 飯 未", lang="yue", phone="sik6 zo2 faan6 mei6"),
+]
+# 77 tokens (text bucket 96): past twice the short ones' 32, so a group with
+# both dispatches twice. About 1270 frames: the 1536 mel bucket, below the
+# 2048 where the estimator turns to banded attention (no kernel 1)
+SERVE_LONGER = dict(text="佢 係 邊 個 今 日 天 氣 好 多 謝 晒 食", lang="yue",
+                    phone="keoi5 hai6 bin1 go3 gam1 jat6 tin1 hei3 hou2 do1 ze6 saai3 sik6")
+
+
+def _serve_group(engine, items, direct, label, want_dispatches, smi):
+    """Submit `items` at once, wait for every result, and hold each against
+    the direct request in `direct` (a SynthesisResult of synthesize(...,
+    pcm16=True)): mel frames equal, mel MAE < 1e-2; the largest waveform gap
+    is printed in PCM16 steps. Fails unless the group was one batch of
+    `want_dispatches` dispatches of 560 kernel-1 and 2 kernel-2 launches
+    each. Returns (launches, wall s, audio s)."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch import kernels
+
+    est = engine.synth.cfg.tts.cfm.estimator
+    per_dispatch = engine.n_timesteps * (est.num_mid_blocks + 2) * est.n_blocks
+    d0, b0 = engine.stats.dispatches, engine.stats.batches
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = [engine.submit(**it) for it in items]
+    res = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    dispatches, batches = engine.stats.dispatches - d0, engine.stats.batches - b0
+    maes, gaps = [], []
+    for r, want in zip(res, direct):
+        if r.mel_frames != want.mel_frames or r.wav.dtype != np.int16 \
+                or r.wav.shape != want.wav.shape:
+            fail(f"serve {label}: {r.mel_frames} frames {r.wav.dtype} {r.wav.shape} against "
+                 f"{want.mel_frames} frames {want.wav.shape}")
+        maes.append(float(np.abs(r.mel - want.mel).mean()))
+        gaps.append(float(np.abs(r.wav.astype(np.float64) - want.wav * 32767.0).max()))
+    audio_s = sum(r.mel_frames for r in res) * 480 / 24000
+    want_launches = {k: 0 for k in launches}
+    want_launches.update(flash_attention=per_dispatch * want_dispatches,
+                         resblock_stage=2 * want_dispatches)
+    log(f"serve engine {label}: {len(items)} requests, {batches} batch, {dispatches} dispatches, "
+        f"frames {[r.mel_frames for r in res]}, wall {wall * 1e3:.1f} ms for {audio_s:.2f} s "
+        f"of audio, aggregate rtf {wall / audio_s:.4f}; vs direct synthesize: mel MAE max "
+        f"{max(maes):.3e}, waveform gap max {max(gaps):.0f} PCM16 steps; launches {launches} "
+        f"({smi})")
+    if (batches != 1 or dispatches != want_dispatches or launches != want_launches
+            or not max(maes) < 1e-2):
+        fail(f"serve engine {label} failed its checks (want {want_dispatches} dispatches in one "
+             f"batch, launches {want_launches}, mel MAE < 1e-2)")
+    return launches, wall, audio_s
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _http(port, path, body=None, timeout=600):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _wav_pcm(data):
+    import wave
+    from io import BytesIO
+
+    import numpy as np
+
+    with wave.open(BytesIO(data), "rb") as f:
+        return np.frombuffer(f.readframes(f.getnframes()), np.int16)
+
+
+def phase_serve(synth, scale, clone_feats, clone_trees, clone_wav, smi):
+    """Serving at full width, 10 steps, PCM16 as TTSServer serves it.
+    Engine (max_batch 8, 200 ms window): 8 requests that coalesce into one
+    b_pad-8 dispatch (cold, then warm), 3 (b_pad 4), 3 plain and one cloned
+    with phase 6b's 250-frame prompt, and a group spanning two text
+    partitions (two dispatches); each result against direct synthesize of
+    the same item, the group's wall time against the 8 requests one by one;
+    a long-form request through the engine's long route (exact attention,
+    kernel 3) against synthesize_long. Lane: 4 streams against single
+    synthesize_streaming streams (1e-4 of max |ref|). HTTP: TTSServer with a
+    streaming lane and phase 6b's extractor: /healthz names the card, 4
+    concurrent /tts coalesce and match the engine within 1 PCM16 step, one
+    /tts/stream, one ref_audio_b64 request twice (one extraction). CLI:
+    `python -m jyutvoice_tpu_torch.cli.serve --random-init --streaming
+    --warmup` on its default device answers /healthz and /tts, then drains on
+    SIGTERM with exit code 0. Returns the launches of the runs in this
+    process."""
+    import base64
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.pipeline.http_server import TTSServer, wav_bytes
+    from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+    from jyutvoice_tpu_torch.pipeline.server import ServingEngine, StreamingLane
+
+    counts = {k: 0 for k in kernels.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            counts[k] += v
+
+    def counted(fn, *args, **kw):
+        kernels.reset_launch_counts()
+        out = fn(*args, **kw)
+        add(kernels.LAUNCHES)
+        return out
+
+    rng = np.random.default_rng(5)
+    items = [dict(it) for it in SERVE_ITEMS]
+    for i in (1, 5):
+        items[i]["spk_embed"] = rng.standard_normal(192).astype(np.float32)
+    cloned = dict(text="早 晨", lang="yue", phone="zou2 san4",
+                  spk_embed=clone_feats.spk_embed, prompt_feat=clone_feats.prompt_feat,
+                  prompt_h=clone_feats.prompt_h)
+
+    def direct(it):
+        return synth.synthesize(**it, n_timesteps=10, length_scale=scale, pcm16=True)
+
+    # the 8 requests one by one (warm b=1 shapes: phase 6 ran them)
+    t0 = time.perf_counter()
+    singles = counted(lambda: [direct(it) for it in items])
+    single_s = time.perf_counter() - t0
+    audio_s = sum(r.mel_frames for r in singles) * 480 / 24000
+    log(f"serve one by one: 8 synthesize calls in {single_s * 1e3:.1f} ms for {audio_s:.2f} s "
+        f"of audio, rtf {single_s / audio_s:.4f}, per request ms "
+        f"{[round(r.timings['total'] * 1e3, 1) for r in singles]} ({smi})")
+
+    with ServingEngine(synth, max_batch=8, max_wait_ms=200.0, n_timesteps=10,
+                       length_scale=scale, pcm16=True, return_mel=True) as engine:
+        for label in ("8 requests, b_pad 8 (cold)", "8 requests, b_pad 8"):
+            launches, wall, _ = _serve_group(engine, items, singles, label, 1, smi)
+            add(launches)
+        log(f"serve b_pad 8 group against one by one: {wall * 1e3:.1f} ms against "
+            f"{single_s * 1e3:.1f} ms, {single_s / wall:.2f}x ({smi})")
+        add(_serve_group(engine, items[:3], singles[:3], "3 requests, b_pad 4", 1, smi)[0])
+        want_cloned, want_longer = counted(lambda: (direct(cloned), direct(SERVE_LONGER)))
+        add(_serve_group(engine, items[1:4] + [cloned], singles[1:4] + [want_cloned],
+                         "3 plain + 1 cloned (250-frame prompt), b_pad 4", 1, smi)[0])
+        add(_serve_group(engine, [items[3], SERVE_LONGER, items[1]],
+                         [singles[3], want_longer, singles[1]],
+                         "two text partitions (buckets 32 and 96)", 2, smi)[0])
+
+    # the long route: a text past INTERACTIVE_TEXT_CAP through synthesize_long
+    long_item = dict(text=" ".join(["佢 係 邊 個"] * 40), lang="yue",
+                     phone=" ".join(["keoi5 hai6 bin1 go3"] * 40))
+    s_long = scale_for(synth, 4000, **long_item)
+    with ServingEngine(synth, n_timesteps=10, length_scale=s_long, pcm16=True,
+                       return_mel=True, long_attention="exact") as engine:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = engine.submit(**long_item).result(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    add(launches)
+    want = counted(synth.synthesize_long, **long_item, n_timesteps=10, length_scale=s_long,
+                   attention="exact", pcm16=True, dequantize=False)
+    gap = float(np.abs(got.wav.astype(np.int32) - want.wav.astype(np.int32)).max())
+    mae = float(np.abs(got.mel - want.mel).mean())
+    log(f"serve engine long route (exact): {got.mel_frames} frames in {wall * 1e3:.1f} ms, "
+        f"launches {launches}; vs synthesize_long mel MAE {mae:.3e}, waveform gap {gap:.0f} "
+        f"PCM16 steps ({smi})")
+    if (got.mel_frames != want.mel_frames or launches["flash_stock"] != 560
+            or launches["resblock_stage"] != 2 or launches["flash_attention"]
+            or not mae < 1e-2):
+        fail("the engine's long route failed its checks")
+
+    # the lane: 4 streams of different lengths and speakers at once
+    lane_items = [items[0], items[4], items[5], items[3]]
+    refs = counted(lambda: [np.concatenate(list(synth.synthesize_streaming(
+        **it, chunk_frames=100, n_timesteps=10, length_scale=scale))) for it in lane_items])
+    with StreamingLane(synth, max_streams=4, chunk_frames=100, n_timesteps=10) as lane:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        handles = [lane.submit(**it, length_scale=scale) for it in lane_items]
+        outs = [np.concatenate(list(h.iter_timeout(600))) for h in handles]
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    add(launches)
+    worst = max(float(np.abs(o - r).max() / np.abs(r).max()) if o.shape == r.shape else np.inf
+                for o, r in zip(outs, refs))
+    ticks = launches["resblock_stage"] // 2
+    audio_s = sum(len(o) for o in outs) / 24000
+    log(f"serve lane: 4 streams of {[len(o) // 480 for o in outs]} frames, {ticks} dispatches, "
+        f"wall {wall * 1e3:.1f} ms for {audio_s:.2f} s of audio, aggregate rtf "
+        f"{wall / audio_s:.4f}; vs single streams max |err| / max |ref| {worst:.3e} (bar "
+        f"{STREAM_REL}); launches {launches} ({smi})")
+    est = synth.cfg.tts.cfm.estimator
+    per_tick = 10 * (est.num_mid_blocks + 2) * est.n_blocks
+    if not worst <= STREAM_REL or launches["flash_attention"] != per_tick * ticks:
+        fail("the streaming lane failed its checks")
+
+    # HTTP: the same model behind TTSServer
+    http_items = [items[0], items[2], items[6], items[7]]
+    with ServingEngine(synth, max_batch=8, max_wait_ms=200.0, n_timesteps=10,
+                       length_scale=scale, pcm16=True) as engine:
+        ref4 = counted(lambda: [f.result(timeout=600)
+                                for f in [engine.submit(**it) for it in http_items]])
+    ex = PromptExtractor(device="cuda", **clone_trees)
+    kernels.reset_launch_counts()
+    with TTSServer(synth, port=0, max_batch=8, max_wait_ms=200.0, n_timesteps=10,
+                   length_scale=scale, streaming=True, chunk_frames=100,
+                   prompt_extractor=ex) as srv:
+        health = json.loads(_http(srv.port, "/healthz"))
+        before = json.loads(_http(srv.port, "/stats"))
+        bodies = {}
+
+        def post(i, it):
+            body = dict(text=it["text"], lang=it["lang"], phone=it["phone"])
+            if it.get("spk_embed") is not None:
+                body["spk_embed"] = it["spk_embed"].tolist()
+            bodies[i] = _http(srv.port, "/tts", body)
+
+        threads = [threading.Thread(target=post, args=(i, it)) for i, it in enumerate(http_items)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        http_wall = time.perf_counter() - t0
+        after = json.loads(_http(srv.port, "/stats"))
+        steps = [int(np.abs(_wav_pcm(bodies[i]).astype(np.int32)
+                            - ref4[i].wav.astype(np.int32)).max())
+                 if i in bodies and len(_wav_pcm(bodies[i])) == len(ref4[i].wav) else -1
+                 for i in range(4)]
+        stream = _http(srv.port, "/tts/stream", dict(items[0]))
+        stream_pcm = np.frombuffer(stream[44:], np.int16)
+        stream_err = (float(np.abs(stream_pcm / 32767.0 - refs[0]).max())
+                      if len(stream_pcm) == len(refs[0]) else np.inf)
+        b64 = base64.b64encode(wav_bytes(clone_wav, 24000)).decode()
+        voice = dict(text="早 晨", lang="yue", phone="zou2 san4", ref_audio_b64=b64)
+        t0 = time.perf_counter()
+        first = _http(srv.port, "/tts", voice)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        second = _http(srv.port, "/tts", voice)
+        second_ms = (time.perf_counter() - t0) * 1e3
+        final = json.loads(_http(srv.port, "/stats"))
+    add(kernels.LAUNCHES)
+    voice_step = (int(np.abs(_wav_pcm(first).astype(np.int32)
+                             - _wav_pcm(second).astype(np.int32)).max())
+                  if len(first) == len(second) else -1)
+    log(f"serve http: /healthz {health}; 4 concurrent /tts in {http_wall * 1e3:.1f} ms, "
+        f"batches {after['batches'] - before['batches']}, requests "
+        f"{after['requests'] - before['requests']}, largest gap to the engine's PCM16 "
+        f"{steps} steps; /tts/stream {len(stream_pcm)} samples, max |err| to "
+        f"synthesize_streaming {stream_err:.3e}; ref_audio_b64 twice: {first_ms:.1f} ms, "
+        f"{second_ms:.1f} ms, cached_voices {final['cached_voices']}, gap {voice_step} steps "
+        f"({smi})")
+    if (health != {"ok": True, "device": torch.cuda.get_device_name(0)}
+            or after["batches"] - before["batches"] != 1
+            or after["requests"] - before["requests"] != 4
+            or not all(0 <= st <= 1 for st in steps)
+            or not stream_err <= STREAM_REL * np.abs(refs[0]).max() + 1 / 32767.0
+            or final["cached_voices"] != 1 or not 0 <= voice_step <= 1):
+        fail("the HTTP server failed its checks")
+
+    # the CLI on its default device, in a process of its own
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__)) + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jyutvoice_tpu_torch.cli.serve", "--random-init", "--host",
+         "127.0.0.1", "--port", str(_free_port()), "--streaming", "--warmup", "--warmup-text",
+         "32", "--warmup-mel", "512"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    t0 = time.perf_counter()
+    try:
+        port = None
+        while port is None and time.perf_counter() - t0 < 300 and proc.poll() is None:
+            m = re.search(r"serving on http://127\.0\.0\.1:(\d+)", "".join(lines))
+            port = int(m.group(1)) if m else None
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        if port is None:
+            fail("cli.serve did not start: " + "".join(lines)[-3000:])
+        health = json.loads(_http(port, "/healthz"))
+        pcm = _wav_pcm(_http(port, "/tts", dict(items[0])))
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        reader.join(timeout=10)
+    warm = [ln.strip() for ln in lines if "warmup:" in ln]
+    log(f"serve cli.serve (default device): ready in {ready_s:.1f} s ({warm}), /healthz "
+        f"{health}, /tts {len(pcm)} samples, rc {rc} after SIGTERM")
+    if (rc != 0 or health.get("device") != torch.cuda.get_device_name(0) or not len(pcm)
+            or not any("drain" in ln for ln in lines)):
+        fail("cli.serve failed its checks: " + "".join(lines)[-3000:])
+    return counts
+
+
 def phase_reference(synth, params_tts, params_hift):
     """The same full-width model on the CPU (plain versions) on a short request."""
     import numpy as np
@@ -1675,6 +2142,15 @@ def main():
                  stream_pair_b4_ms=stream_stage[4]["ms"],
                  stream_pair_b4_plain_ms=stream_stage[4]["plain_ms"],
                  stream_pair_b4_bound_ms=stream_stage[4]["bound_ms"])
+    serve_err, serve_stage_err, serve_flash, serve_stage = timed(
+        "6e serve kernels", phase_serve_kernels, synth, smi)
+    serve_counts = timed("6f serve", phase_serve, synth, scale, clone_feats, clone_trees,
+                         clone_wav, smi)
+    counts = {k: counts[k] + serve_counts.get(k, 0) for k in counts}
+    flash["max_abs_err"] = max(flash["max_abs_err"], serve_err)
+    stage["max_abs_err"] = max(stage["max_abs_err"], serve_stage_err)
+    flash.update({f"serve_{case}_{k}": v for case, d in serve_flash.items() for k, v in d.items()})
+    stage.update({f"serve_{case}_{k}": v for case, d in serve_stage.items() for k, v in d.items()})
     long_counts = timed("7 long form", phase_long_form, synth)
     timed("7 reference", phase_long_reference, synth, params_tts, params_hift)
     del synth

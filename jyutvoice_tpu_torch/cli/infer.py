@@ -14,14 +14,17 @@ package's format (`save_pytree_npz`) or the reference's torch files
 (--tokenizer-torch or a name-preserving --tokenizer-onnx) and the flow
 encoder (--flow-encoder), as the reference does. --stream synthesizes
 chunk by chunk (--chunk-frames mel frames each), logs the first chunk's
-latency and writes the chunks joined. Runs on the GPU unless --device cpu
-is given.
+latency and writes the chunks joined. --text-file synthesizes one utterance
+per line ("text" or "text|phonetics") in batches of --batch-size through
+`Synthesizer.synthesize_batch` and writes <output stem>_NNNN.wav. Runs on
+the GPU unless --device cpu is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 import wave
 
@@ -69,7 +72,12 @@ def load_params(path: str, kind: str, cfg):
 
 def main(argv=None, cfg=None):
     parser = argparse.ArgumentParser(description="JyutVoice inference (PyTorch port)")
-    parser.add_argument("--text", required=True)
+    parser.add_argument("--text", default=None)
+    parser.add_argument("--text-file", default=None,
+                        help="batch mode: one utterance per line (optionally "
+                             "'text|phonetics'), synthesized in batches; writes "
+                             "<output stem>_NNNN.wav")
+    parser.add_argument("--batch-size", type=int, default=8, help="batch-mode group size")
     parser.add_argument("--lang", default="yue", choices=["yue", "zh", "en", "multilingual"])
     parser.add_argument("--phone", default=None,
                         help="explicit jyutping/pinyin (space separated)")
@@ -94,6 +102,8 @@ def main(argv=None, cfg=None):
                         help="seed of the random weights used without --ckpt/--hift")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
     args = parser.parse_args(argv)
+    if (args.text is None) == (args.text_file is None):
+        parser.error("exactly one of --text / --text-file is required")
     logging.basicConfig(level=logging.INFO)
 
     from jyutvoice_tpu_torch.config import JyutVoiceConfig
@@ -132,13 +142,38 @@ def main(argv=None, cfg=None):
             log.warning("no speech tokenizer / flow encoder: cloning uses mel prompt only")
             prompt_feat = None
 
-    text = args.text
-    if args.lang in ("yue", "zh") and args.phone is None:
-        from jyutvoice_tpu_torch.text.word_seg import word_seg
+    def segment(text: str, phone) -> str:
+        if args.lang in ("yue", "zh") and phone is None:
+            from jyutvoice_tpu_torch.text.word_seg import word_seg
 
-        text = word_seg(text)
+            return word_seg(text)
+        return text
+
     # Synthesizer turns TF32 off on the GPU (parity with the f32 reference)
     synth = Synthesizer(cfg, params_tts, params_hift, device=args.device)
+    if args.text_file:
+        with open(args.text_file, encoding="utf-8") as f:
+            lines = [ln.strip() for ln in f if ln.strip()]
+        stem, ext = os.path.splitext(args.output)
+        results = []
+        for lo in range(0, len(lines), args.batch_size):
+            items = []
+            for ln in lines[lo : lo + args.batch_size]:
+                text, _, phone = (part.strip() for part in ln.partition("|"))
+                phone = phone or None
+                items.append(dict(text=segment(text, phone), lang=args.lang, phone=phone,
+                                  spk_embed=spk_embed, prompt_feat=prompt_feat,
+                                  prompt_h=prompt_h))
+            results += synth.synthesize_batch(
+                items, n_timesteps=args.n_timesteps, length_scale=args.length_scale,
+                return_mel=False,
+            )
+        for i, res in enumerate(results):
+            save_wav(f"{stem}_{i:04d}{ext or '.wav'}", res.wav)
+        log.info("wrote %d wavs to %s_*%s", len(results), stem, ext or ".wav")
+        return results
+
+    text = segment(args.text, args.phone)
     if args.stream:
         t0 = time.perf_counter()
         chunks = []

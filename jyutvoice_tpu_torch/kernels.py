@@ -8,8 +8,10 @@ rebuilds and an unchanged one is reused. `build_all()` starts one nvcc per
 source at once.
 
 `LAUNCHES` counts kernel launches per kernel entry point. A wrapper adds one
-where it launches its kernel and nowhere else; `reset_launch_counts()`
-zeroes them.
+through `count_launch` where it launches its kernel and nowhere else;
+`reset_launch_counts()` zeroes them. Both hold a lock, so launches from
+several threads (a serving engine's worker beside a streaming lane's) keep
+the counts exact.
 """
 
 from __future__ import annotations
@@ -41,12 +43,20 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # builds and library loads
+_COUNT_LOCK = threading.Lock()  # LAUNCHES
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of `name` to LAUNCHES."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

@@ -138,5 +138,5 @@ def flash_attention(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(status, "flash_attention")
-    kernels.LAUNCHES["flash_attention"] += 1
+    kernels.count_launch("flash_attention")
     return out

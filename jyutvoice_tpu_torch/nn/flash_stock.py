@@ -247,7 +247,7 @@ def _launch_fwd(q, k, v, lengths, scale, residuals):
         float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(status, "flash_stock")
-    kernels.LAUNCHES["flash_stock"] += 1
+    kernels.count_launch("flash_stock")
     return (out, m, l) if residuals else out
 
 
@@ -303,7 +303,7 @@ def flash_stock_bwd_prepare(
         *do.stride()[:3], torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(status, "flash_stock_bwd_prep")
-    kernels.LAUNCHES["flash_stock_bwd_prep"] += 1
+    kernels.count_launch("flash_stock_bwd_prep")
     return prep
 
 
@@ -323,7 +323,7 @@ def _launch_bwd(entry, q, k, v, do, m, l, di, lengths, scale, prepared, outs):
         b, t, h, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     kernels.check(status, what)
-    kernels.LAUNCHES[what] += 1
+    kernels.count_launch(what)
 
 
 def _grad_like(q):

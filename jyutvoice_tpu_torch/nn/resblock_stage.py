@@ -306,7 +306,7 @@ def resblock_stage_prepared(x: torch.Tensor, stage: PreparedStage) -> torch.Tens
         (ctypes.c_int * len(dil))(*dil), tt, torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(status, "resblock_stage")
-    kernels.LAUNCHES["resblock_stage"] += 1
+    kernels.count_launch("resblock_stage")
     return out
 
 

@@ -1,0 +1,1 @@
+from jyutvoice_tpu_torch.pipeline.server import ServingEngine  # noqa: F401

@@ -12,6 +12,10 @@ from typing import Sequence, Tuple
 # long text encode in one pass
 TEXT_BUCKETS: Tuple[int, ...] = (32, 64, 96, 128, 192, 256, 384, 512,
                                  1024, 2048, 4096, 8192)
+# text past this is long-form: the serving engine sends such a request
+# through synthesize_long on its own instead of batching it
+# (pipeline/server.py)
+INTERACTIVE_TEXT_CAP = 512
 # mel frames: 50/s -> up to 300 s (the reference's fixed noise buffer cap)
 MEL_BUCKETS: Tuple[int, ...] = (128, 256, 384, 512, 768, 1024, 1536, 2048,
                                 3072, 4096, 6144, 8192, 12288, 15000)

@@ -46,7 +46,12 @@ from jyutvoice_tpu_torch.models.flow_encoder import (
     apply_flow_encoder_chunk,
     init_stream_state,
 )
-from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32, to_pcm16
+from jyutvoice_tpu_torch.pipeline.synthesize import (
+    _Readback,
+    _to_device,
+    disable_tf32,
+    to_pcm16,
+)
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 from jyutvoice_tpu_torch.weights.noise import rand_noise_extended
 
@@ -248,35 +253,6 @@ def _advance_session(st: dict, p: int, mu_row, z_row, plan: _Plan) -> None:
     st["mu_cache"][p:] = mu_row[tail_lo : tail_lo + OVERLAP]
     st["pos"] += plan.n_new
     st["has_held"] = plan.next_held
-
-
-def _to_device(arr: np.ndarray, device: torch.device) -> Tensor:
-    """A host array on `device` without waiting for the device: a pinned
-    copy, sent asynchronously (a blocking copy would synchronize the
-    stream)."""
-    t = torch.from_numpy(arr)
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
-
-
-class _Readback:
-    """A device tensor copied to pinned host memory behind a CUDA event, so
-    the host waits for that copy only, not for later work on the stream."""
-
-    def __init__(self, x: Tensor):
-        if x.device.type == "cuda":
-            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            self.host.copy_(x, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(x.device))
-        else:
-            self.host, self.event = x, None
-
-    def numpy(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
 
 
 def _as_module(tree_or_module, cls, cfg, device: torch.device) -> nn.Module:

@@ -14,6 +14,10 @@ over the whole utterance at a 512-aligned length, where the estimator takes
 the long-form attention gates (banded, or kernel 3 for exact attention),
 then the windowed vocoder. `synthesize_streaming` runs the same text half,
 then yields the waveform chunk by chunk (`pipeline/streaming.py`).
+`synthesize_batch_dispatch` runs the short path for several requests at
+once (the serving engine's path, `pipeline/server.py`): one duration pass,
+then the mel phase and the vocoder at a power-of-two batch, with the
+read-back left to the `finalize` it returns.
 """
 
 from __future__ import annotations
@@ -40,6 +44,24 @@ PROMPT_PAIR_ERROR = (
     "voice cloning needs BOTH prompt_feat and prompt_h "
     "(PromptExtractor returns the pair); got only one"
 )
+
+
+class OverLongBatchItems(ValueError):
+    """Raised by synthesize_batch_dispatch when some items need more mel
+    frames than the bucket table holds. `indices` are those items'
+    positions in the list passed, so a server can send only them elsewhere
+    and dispatch the rest again."""
+
+    def __init__(self, msg: str, indices):
+        super().__init__(msg)
+        self.indices = tuple(indices)
+
+
+class NoiseBufferExceeded(ValueError):
+    """Raised by synthesize_batch_dispatch when the batch's prompt bucket +
+    mel bucket pass the 15000-frame noise buffer. The mel bucket is the
+    longest item's, so this is a property of the group: a server catches
+    the type, splits the group and retries."""
 
 
 def long_frame_granule(n_seq: int) -> int:
@@ -87,6 +109,35 @@ def disable_tf32() -> None:
     package's f32 path. Enabling TF32 is a separate, measured decision."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device` without waiting for the device: a pinned
+    copy, sent asynchronously (a blocking copy would synchronize the
+    stream)."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class _Readback:
+    """A device tensor copied to pinned host memory behind a CUDA event, so
+    the host waits for that copy only, not for later work on the stream."""
+
+    def __init__(self, x: torch.Tensor):
+        if x.device.type == "cuda":
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(x.device))
+        else:
+            self.host, self.event = x, None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 @dataclasses.dataclass
@@ -143,20 +194,26 @@ class Synthesizer:
         )
 
     def _durations(self, arrs, n, spk: torch.Tensor):
-        """Text encoder + duration predictor: (encoder output, ceil(w))."""
+        """Text encoder + duration predictor: (encoder output, ceil(w)).
+        arrs and n are host arrays or tensors on the device."""
         x, tone, word_pos, syllable_pos, lang_ids = (
-            torch.from_numpy(a).to(self.device) for a in arrs
+            torch.as_tensor(a, device=self.device) for a in arrs
         )
-        x_lengths = torch.from_numpy(n).to(self.device)
+        x_lengths = torch.as_tensor(n, device=self.device)
         enc = self.tts.encoder(x, x_lengths, lang_ids, tone, word_pos, syllable_pos, spk)
         logw = self.tts.dp(enc.x, enc.x_mask, spk)
         return enc, torch.ceil(torch.exp(logw) * enc.x_mask)
 
     @torch.inference_mode()
+    def duration_frames_batch(self, arrs, n, spk: torch.Tensor) -> np.ndarray:
+        """Phase 1 for every row: the mel frames each text needs at
+        length_scale 1, read back to the host (float32, at least 1)."""
+        _, w_ceil = self._durations(arrs, n, spk)
+        return torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).cpu().numpy()
+
     def duration_frames(self, arrs, n, spk: torch.Tensor) -> int:
         """Phase 1: mel frames the text needs at length_scale 1."""
-        _, w_ceil = self._durations(arrs, n, spk)
-        return int(torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0)[0])
+        return int(self.duration_frames_batch(arrs, n, spk)[0])
 
     @torch.inference_mode()
     def prepare_stream(
@@ -452,3 +509,204 @@ class Synthesizer:
                 "audio_seconds": audio_seconds,
             },
         )
+
+    @torch.inference_mode()
+    def synthesize_batch_dispatch(
+        self,
+        items,
+        n_timesteps: int = 10,
+        length_scale: float = 1.0,
+        return_mel: bool = True,
+        pcm16: bool = False,
+    ):
+        """Start the short path for a batch of requests; returns a
+        zero-argument `finalize` that waits for this batch's results and
+        builds the list of SynthesisResult (rtf nan, no timings).
+
+        items: dicts with text / lang / phone and optional spk_embed /
+        prompt_feat / prompt_h (and "_prepped", a `prepare_text` result a
+        server computed while validating the item). Text, mel and prompt
+        lengths are padded to the batch's largest bucket, and the batch to
+        the next power of two by repeating item 0, so group sizes map onto
+        a few shapes; results drop the padding rows.
+
+        The durations are read back here (they pick the mel bucket): that is
+        the one wait for the device. The mel phase, the vocoder and the
+        copies of the waveform, the mel lengths and (with return_mel) the
+        mel to pinned host memory are only enqueued, behind CUDA events;
+        `finalize` waits for those copies alone, so a server can start the
+        next batch before reading this one back. pcm16=True rounds the
+        waveform to int16 on the device and returns it as int16.
+
+        Raises ValueError for a half or mismatched prompt pair,
+        OverLongBatchItems for items past the 15000-frame bucket (with
+        their indices) and NoiseBufferExceeded when prompt + mel buckets
+        pass the noise buffer."""
+        b_real = len(items)
+        if b_real == 0:
+            return lambda: []
+        b_pad = 1 << (b_real - 1).bit_length()  # the next power of two
+        items = list(items) + [items[0]] * (b_pad - b_real)
+        bad_pair = [
+            i for i, it in enumerate(items[:b_real])
+            if (it.get("prompt_feat") is None) != (it.get("prompt_h") is None)
+            or (it.get("prompt_feat") is not None
+                and len(it["prompt_feat"]) != len(it["prompt_h"]))
+        ]
+        if bad_pair:
+            raise ValueError(
+                f"items {bad_pair} have a mismatched cloning prompt: prompt_feat and "
+                "prompt_h must be given together with equal frame counts "
+                "(PromptExtractor returns the aligned pair)"
+            )
+        prepped = [
+            it.get("_prepped")
+            or self.prepare_text(it["text"], it.get("lang", "yue"), it.get("phone"))
+            for it in items
+        ]
+        t_text = max(p[2] for p in prepped)
+        feats = np.zeros((5, b_pad, t_text), np.int64)  # x, tone, word_pos, syllable_pos, lang
+        x_lengths = np.zeros((b_pad,), np.int64)
+        for i, (arrs, n, _) in enumerate(prepped):
+            for f, a in enumerate(arrs):
+                feats[f, i, : a.shape[1]] = a[0]
+            x_lengths[i] = n[0]
+        spk = np.zeros((b_pad, self.cfg.tts.spk_embed_dim), np.float32)
+        for i, it in enumerate(items):
+            if it.get("spk_embed") is not None:
+                spk[i] = it["spk_embed"]
+        dev = self.device
+        feats_d, x_len_d, spk_d = (_to_device(a, dev) for a in (feats, x_lengths, spk))
+        x, tone, word_pos, syllable_pos, lang_ids = feats_d
+
+        y_lens = self.duration_frames_batch(feats_d, x_len_d, spk_d)
+        y_max = int(np.ceil(y_lens.max() * length_scale))
+        if y_max > bkt.MEL_BUCKETS[-1]:
+            # padding rows copy row 0, so the real rows name every culprit
+            need = np.ceil(y_lens[:b_real] * length_scale)
+            raise OverLongBatchItems(
+                f"an item needs {y_max} mel frames, past the {bkt.MEL_BUCKETS[-1]}-frame "
+                "batch table: synthesize it alone (synthesize / synthesize_long have no "
+                "cap)",
+                [i for i in range(b_real) if need[i] > bkt.MEL_BUCKETS[-1]],
+            )
+        t_mel = bkt.pick_bucket(max(y_max, 1), bkt.MEL_BUCKETS)
+
+        p_lens = np.array([0 if it.get("prompt_feat") is None else len(it["prompt_feat"])
+                           for it in items], np.int32)
+        t_prompt = bkt.pick_prompt_bucket(int(p_lens.max()), t_mel)
+        prompts = np.zeros((2, b_pad, t_prompt, 80), np.float32)  # prompt_feat, prompt_h
+        for i, it in enumerate(items):
+            if p_lens[i]:
+                prompts[0, i, : p_lens[i]] = it["prompt_feat"]
+                prompts[1, i, : p_lens[i]] = it["prompt_h"]
+        if t_prompt + t_mel > self.noise.shape[1]:
+            raise NoiseBufferExceeded(
+                f"prompt ({t_prompt}) + mel ({t_mel}) frames exceed the "
+                f"{self.noise.shape[1]}-frame noise buffer; synthesize such items alone "
+                "(synthesize / synthesize_long extend the noise)"
+            )
+        prompts_d = _to_device(prompts, dev)
+
+        out = tts_mod.synthesize_mel(
+            self.tts, x, x_len_d, lang_ids, tone, word_pos, syllable_pos, spk_d,
+            prompts_d[0], prompts_d[1],
+            torch.from_numpy(p_lens),  # read on the host: no device sync
+            t_mel_max=t_mel, n_timesteps=n_timesteps, rand_noise=self.noise,
+            length_scale=length_scale,
+        )
+        wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
+        if pcm16:
+            wav = to_pcm16(wav)
+        lens_rb = _Readback(out.mel_lengths[:b_real])
+        wav_rb = _Readback(wav[:b_real])
+        mel_rb = _Readback(out.mel[:b_real]) if return_mel else None
+        hop = self.cfg.audio.hop_length
+
+        def finalize():
+            lens, wav_np = lens_rb.numpy(), wav_rb.numpy()
+            mel_np = mel_rb.numpy() if return_mel else None
+            results = []
+            for i in range(b_real):
+                frames = int(lens[i])
+                results.append(SynthesisResult(
+                    wav=wav_np[i, : frames * hop],
+                    mel=mel_np[i, :frames] if return_mel else None,
+                    mel_frames=frames,
+                    rtf=float("nan"),
+                    timings={},
+                ))
+            return results
+
+        return finalize
+
+    def synthesize_batch(
+        self,
+        items,
+        n_timesteps: int = 10,
+        length_scale: float = 1.0,
+        return_mel: bool = True,
+        pcm16: bool = False,
+    ):
+        """Batched synthesis; see synthesize_batch_dispatch."""
+        return self.synthesize_batch_dispatch(
+            items, n_timesteps=n_timesteps, length_scale=length_scale,
+            return_mel=return_mel, pcm16=pcm16,
+        )()
+
+    @torch.inference_mode()
+    def warmup(
+        self,
+        text_buckets=None,
+        mel_buckets=None,
+        prompt_buckets=(0,),
+        n_timesteps=(10,),
+        batch_sizes=(1,),
+        pcm16: bool = False,
+        log_fn=None,
+    ) -> int:
+        """Drive each (batch, text, mel, prompt, steps) shape of the serving
+        path once before traffic arrives, on zero inputs: the duration pass
+        at each (batch, text bucket), the mel phase and the vocoder at each
+        combination. In eager PyTorch this builds the CUDA kernels at their
+        first use and warms cuDNN's algorithm choice and the caching
+        allocator at those shapes. It compiles nothing and captures no CUDA
+        graph: later requests still launch op by op.
+
+        batch_sizes follows the engine's power-of-two padding ((1, 2, 4, 8)
+        covers max_batch=8). Defaults: text buckets <= 128, mel buckets <=
+        1024, no prompt. Returns the count the JAX package's warmup returns
+        for the same arguments: 1 per duration shape, 2 per mel + vocoder
+        shape, and 1 more per shape at batch 1, where the JAX package also
+        compiles the single-request graph; here a single request runs the
+        same code as a batch of one, which this warms."""
+        tb = tuple(text_buckets) if text_buckets else bkt.TEXT_BUCKETS[:4]
+        mb = tuple(mel_buckets) if mel_buckets else bkt.MEL_BUCKETS[:6]
+        dev, count = self.device, 0
+        for b in sorted({int(v) for v in batch_sizes}):
+            spk = torch.zeros((b, self.cfg.tts.spk_embed_dim), device=dev)
+            ones = torch.ones((b,), dtype=torch.int64, device=dev)
+            for t_text in tb:
+                x = torch.zeros((b, t_text), dtype=torch.int64, device=dev)
+                self._durations([x] * 5, ones, spk)
+                count += 1
+                for t_mel in mb:
+                    for t_prompt in prompt_buckets:
+                        pf = torch.zeros((b, t_prompt, 80), device=dev)
+                        plen = torch.zeros((b,), dtype=torch.int32)
+                        noise = self.noise
+                        if t_prompt + t_mel > noise.shape[1]:
+                            noise = rand_noise_extended(t_prompt + t_mel, device=dev)
+                        for steps in n_timesteps:
+                            if log_fn:
+                                log_fn(f"warmup b={b} {(t_text, t_mel, t_prompt, int(steps))}")
+                            out = tts_mod.synthesize_mel(
+                                self.tts, x, ones, x, x, x, x, spk, pf, pf, plen,
+                                t_mel_max=t_mel, n_timesteps=int(steps), rand_noise=noise,
+                            )
+                            wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
+                            if pcm16:
+                                to_pcm16(wav)
+                            count += 3 if b == 1 else 2
+        self._sync()
+        return count

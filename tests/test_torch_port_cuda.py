@@ -16,7 +16,11 @@ Streaming: kernel 1 and kernel 2 at the streaming shapes to the bars
 above (kernel 1 also writing 0 on a length-0 row, a free session slot's);
 a small `StreamingSynthesizer` on the card against the CPU (per chunk mel
 MAE < 1e-2) and the multi-session lane against the single stream on the
-card (1e-4 of max |ref|).
+card (1e-4 of max |ref|). Serving: kernel 1 at the batched shapes (B =
+2 b_pad, a length per row, the padding rows repeating row 0, prompt-extended
+rows), kernel 2 at batch 8, and a small engine group on the card against the
+same synthesizer on the CPU (mel MAE < 1e-2, one dispatch of the whole
+group).
 """
 
 import pytest
@@ -656,3 +660,90 @@ def test_streaming_on_the_card_matches_the_cpu(cuda):
         ref = np.concatenate(list(card.stream(m, spk)))
         assert o.shape == ref.shape
         assert np.abs(o - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+
+def _cfg_rows(lens):
+    """A batch's rows as the CFG solve has them: the conditional half, then
+    the unconditional half repeating it."""
+    return list(lens) + list(lens)
+
+
+@pytest.mark.parametrize(
+    "t,lengths",
+    [  # b_pad 8 (B=16): 7 requests and a padding row repeating row 0
+     (512, _cfg_rows([512, 301, 488, 97, 460, 233, 412, 512])),
+     (1024, _cfg_rows([1000, 611, 1024, 38, 777, 950, 402, 1000])),
+     # b_pad 4 (B=8): 3 requests and one padding row
+     (512, _cfg_rows([480, 129, 350, 480])),
+     # cloned and plain rows: a 64-frame prompt bucket ahead of the mel
+     # bucket, each row valid over its prompt + mel frames
+     (64 + 512, _cfg_rows([40 + 500, 0 + 311, 64 + 512, 40 + 500]))],
+)
+def test_flash_kernel_at_serving_shapes(cuda, t, lengths):
+    from jyutvoice_tpu_torch.nn.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b = len(lengths)
+    q, k, v = (torch.randn(b, t, 8, 64, device=cuda, generator=g) for _ in range(3))
+    pad = b // 2 - 1  # the last request row of the half is a copy of row 0
+    for a in (q, k, v):
+        a[pad], a[b - 1] = a[0], a[b // 2]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = flash_attention(q, k, v, lens, scale=0.125)
+    ref = flash_attention_plain(q, k, v, lens, scale=0.125)
+    for i, n in enumerate(lengths):
+        torch.testing.assert_close(out[i, :n], ref[i, :n], atol=5e-3, rtol=2e-2)
+    torch.testing.assert_close(out[pad], out[0], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("c,t", [(128, 20480), (64, 61441)])
+def test_resblock_stage_at_batch_8(cuda, c, t):
+    """The 512 bucket's pair, whole, at batch 8 (a full serving group)."""
+    from jyutvoice_tpu_torch.nn.resblock_stage import resblock_stage, resblock_stage_plain
+
+    ks = (3, 7, 11)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = _stage_weights(g, c, ks, FULL_DIL)
+    x = torch.randn(8, t, c, device=cuda, generator=g) * 0.5
+    kw = dict(kernel_sizes=ks, dilations=FULL_DIL)
+    torch.testing.assert_close(
+        resblock_stage(x, w, **kw), resblock_stage_plain(x, w, **kw), atol=2e-5, rtol=1e-4
+    )
+
+
+def test_engine_group_on_the_card_matches_the_cpu(cuda):
+    """Three requests (one cloned) coalesce into one dispatch at b_pad 4 on
+    the card, through kernels 1 and 2, and agree with the CPU's batch."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.pipeline.server import ServingEngine
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+
+    cfg, tt, th = _small_trees()
+    card = Synthesizer(cfg, tt, th, device=cuda)
+    cpu = Synthesizer(cfg, tt, th, device="cpu")
+    rng = np.random.default_rng(1)
+    pf = rng.standard_normal((40, 80)).astype(np.float32)
+    items = [dict(text="佢 係邊 個", lang="yue", phone="keoi5 hai6 bin1 go3"),
+             dict(text="你好", lang="yue", phone="nei5 hou2"),
+             dict(text="好", lang="yue", phone="hou2", prompt_feat=pf, prompt_h=pf)]
+    want = cpu.synthesize_batch([dict(it) for it in items], n_timesteps=2)
+    kernels.reset_launch_counts()
+    with ServingEngine(card, max_batch=4, max_wait_ms=500.0, n_timesteps=2,
+                       return_mel=True) as engine:
+        futs = [engine.submit(**it) for it in items]
+        got = [f.result(timeout=300) for f in futs]
+        stats = engine.stats
+    assert stats.dispatches == 1 and stats.batch_sizes == [3]
+    est = cfg.tts.cfm.estimator
+    assert kernels.LAUNCHES["flash_attention"] == 2 * (est.num_mid_blocks + 2) * est.n_blocks
+    assert kernels.LAUNCHES["resblock_stage"] == 3  # base 64: three stages, one dispatch
+    for g_, w_ in zip(got, want):
+        assert g_.mel_frames == w_.mel_frames and np.isfinite(g_.wav).all()
+        assert np.abs(g_.mel - w_.mel).mean() < 1e-2

@@ -1,8 +1,9 @@
 """The port stands alone: no module of `jyutvoice_tpu_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package or names a path into it, the
 port reads its own copy of the LTS rule table (and of the modules it copies
-byte for byte), and it synthesizes, streams, trains and clones a voice in a process
-where JAX and the JAX package are import-blocked."""
+byte for byte), and it synthesizes, streams, trains, clones a voice and
+serves (the batching engine and the HTTP server) in a process where JAX and
+the JAX package are import-blocked."""
 
 import ast
 import os
@@ -242,3 +243,39 @@ def test_port_streams_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_STREAMS_STANDALONE_OK" in proc.stdout
+
+
+_SERVE_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+import json
+import urllib.request
+import wave
+from io import BytesIO
+
+from jyutvoice_tpu_torch.pipeline import ServingEngine
+from jyutvoice_tpu_torch.pipeline.http_server import TTSServer
+
+s = Synthesizer(cfg, init_tts_tree(cfg.tts), init_hift_tree(cfg.hift), device="cpu")
+with ServingEngine(s, max_batch=2, max_wait_ms=5.0, n_timesteps=2) as engine:
+    r = engine.submit("佢", lang="yue", phone="keoi5").result(timeout=120)
+assert r.wav.shape == (r.mel_frames * 480,) and np.isfinite(r.wav).all()
+with TTSServer(s, port=0, max_batch=2, max_wait_ms=5.0, n_timesteps=2) as srv:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/tts",
+        data=json.dumps({"text": "佢", "lang": "yue", "phone": "keoi5"}).encode())
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        with wave.open(BytesIO(resp.read()), "rb") as f:
+            assert f.getnframes() == r.mel_frames * 480
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_SERVES_STANDALONE_OK", r.mel_frames)
+"""
+
+
+def test_port_serves_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVE_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_SERVES_STANDALONE_OK" in proc.stdout
