@@ -97,13 +97,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      kernel 2), the b_pad-8 group's wall time against the 8 requests one
      by one; a long-form request through the engine's long route (exact,
      kernel 3) against synthesize_long; StreamingLane with 4 streams against
-     single streams (1e-4 of max |ref|); TTSServer (streaming lane, phase
+     single streams (1e-4 of max |ref|), its dispatch count against the
+     chunks of its longest stream and its launches against that count;
+     TTSServer (streaming lane, phase
      6b's extractor): /healthz names the card, 4 concurrent /tts coalesce
      into one batch within 1 PCM16 step of the engine, one /tts/stream, one
      ref_audio_b64 request twice (one extraction); `python -m
      jyutvoice_tpu_torch.cli.serve --random-init --streaming --warmup` on
      its default device answers /healthz and /tts and drains on SIGTERM
      with exit code 0;
+  6g. kernels 1 and 2 on the very inputs that phase 6f's engine groups
+     handed them (the first call at each shape, kept on the device while
+     the groups ran, all but the timed warm group): kernel 1 at B = 2 b_pad
+     with the batch path's own lengths, padding rows and prompt rows
+     (a row that repeats an earlier one must equal it bit for bit), kernel
+     2 on the whole-bucket decodes with the vocoder's prepared weights,
+     each against its plain version and timed as in phase 6e;
   7. the long-form path: synthesize_long with exact attention at 4096 frames
      (kernel 3), the same in auto mode (banded), exact with a 100-frame
      prompt (2560 frames in all, kernel 3), and synthesize past the
@@ -1519,6 +1528,124 @@ def _cfg_rows(lens):
     return list(lens) + list(lens)
 
 
+def _repeated_rows(lens, *xs):
+    """(i, j) for every row i whose length and inputs equal those of an
+    earlier row j bit for bit (j the first such row)."""
+    pairs = []
+    for i in range(1, len(lens)):
+        for j in range(i):
+            if lens[j] == lens[i] and all(bool((x[i] == x[j]).all()) for x in xs):
+                pairs.append((i, j))
+                break
+    return pairs
+
+
+def _serve_flash_case(label, q, k, v, lengths, smi, scale=0.125, chunk_size=0,
+                      num_left_chunks=-1, want_repeats=0):
+    """Kernel 1 on one serving batch against its plain version on the valid
+    rows; a row whose inputs repeat an earlier row's must come out equal to
+    it bit for bit (at least `want_repeats` such rows). Times by CUDA events
+    and CUDA-graph device time beside SDPA, the plain version and the bound.
+    Returns (max |err|, times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch.nn.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+        key_keep_mask,
+    )
+
+    b, t, h, d = q.shape
+    lens = lengths.tolist()
+    kw = dict(scale=scale, chunk_size=chunk_size, num_left_chunks=num_left_chunks)
+    out = flash_attention(q, k, v, lengths, **kw)
+    ref = flash_attention_plain(q, k, v, lengths, **kw)
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for i, n in enumerate(lens):
+        err = max(err, float((out[i, :n] - ref[i, :n]).abs().max()) if n else 0.0)
+        ok &= within(out[i, :n], ref[i, :n], ATTN_TOL)
+    repeats = _repeated_rows(lens, q, k, v)
+    same = all(torch.equal(out[i], out[j]) for i, j in repeats)
+    del out, ref
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, **kw), 200)
+    dev_ms = graph_time_ms(lambda: flash_attention(q, k, v, lengths, **kw))
+    plain_ms = cuda_time_ms(lambda: flash_attention_plain(q, k, v, lengths, **kw), 10)
+    keep = key_keep_mask(lengths, t, chunk_size, num_left_chunks)
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, scale=scale), 200)
+    pairs = int(keep.expand(-1, -1, t, -1).sum()) * h
+    bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
+    log(f"serve flash {label} B={b} T={t} lengths={lens}: max_abs_err={err:.3e} ok={ok} "
+        f"(rows repeating an earlier row {repeats}, outputs equal: {same}) "
+        f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}) ({smi})")
+    if not ok or not same or len(repeats) < want_repeats:
+        fail(f"flash attention disagrees with its plain version at the serving shape "
+             f"{label} B={b} T={t} lengths={lens} (or a repeated row differs)")
+    return err, dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms)
+
+
+def _stage_weights(synth, c):
+    """The plain weights of the vocoder stage with c channels."""
+    from jyutvoice_tpu_torch.nn import resblock_stage as rs
+
+    cfg = synth.cfg.hift
+    n = len(cfg.resblock_kernel_sizes)
+    dil = tuple(cfg.resblock_dilation_sizes[0])
+    for st in range(len(synth.hift.resblocks) // n):
+        if synth.hift.resblocks[st * n].convs1[0].weight.shape[0] == c:
+            return rs.pack_stage_weights(synth.hift.resblocks[st * n : (st + 1) * n], dil)
+    fail(f"the vocoder has no {c}-channel stage")
+
+
+def _serve_stage_case(label, x, prepared, w, synth, smi):
+    """Kernel 2 on one whole-bucket decode against its plain version on
+    every row, beside its plain version's time and the 3xTF32 bound.
+    Returns (max |err|, times)."""
+    import torch
+
+    from jyutvoice_tpu_torch.nn import resblock_stage as rs
+
+    ks = tuple(synth.cfg.hift.resblock_kernel_sizes)
+    dil = tuple(synth.cfg.hift.resblock_dilation_sizes[0])
+    b, t, c = x.shape
+    out = rs.resblock_stage_prepared(x, prepared)
+    ref = rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    ok = within(out, ref, STAGE_TOL)
+    del out, ref
+    ms = cuda_time_ms(lambda: rs.resblock_stage_prepared(x, prepared), 5, warmup=1)
+    plain_ms = cuda_time_ms(
+        lambda: rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil), 2, warmup=1)
+    flops = b * t * c * c * 4 * len(dil) * sum(ks)
+    bound_ms, bound_by = bound(2 * x.numel() * 4 + w.numel() * 4, 3 * flops, PEAK_TF32_FLOPS)
+    log(f"serve resblock_stage {label} C={c} T={t} B={b}: max_abs_err={err:.3e} ok={ok} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"(3xTF32, {bound_by}) ({smi})")
+    if not ok:
+        fail(f"resblock stage disagrees with its plain version at the serving shape "
+             f"{label} C={c} T={t} B={b}")
+    return err, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def _add_stage(pairs, key, times):
+    """Adds one stage's times to its bucket pair's sums in pairs[key]."""
+    acc = pairs.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0))
+    for name in acc:
+        acc[name] += times[name]
+
+
+def _log_pairs(pairs, note, smi):
+    for key, acc in pairs.items():
+        log(f"serve resblock_stage {key}{note}: ms={acc['ms']:.4f} "
+            f"plain_ms={acc['plain_ms']:.4f} bound_ms={acc['bound_ms']:.4f} ({smi})")
+
+
 def phase_serve_kernels(synth, smi):
     """Kernels 1 and 2 at the serving shapes. Kernel 1 at B = 2 b_pad (b_pad
     8 and 4), H=8, D=64, T=512 and 1024, a different valid length on every
@@ -1534,14 +1661,8 @@ def phase_serve_kernels(synth, smi):
     beside its plain version's time and the 3xTF32 bound. CUDA-event
     medians of 3 loops."""
     import torch
-    import torch.nn.functional as F
 
     from jyutvoice_tpu_torch.nn import resblock_stage as rs
-    from jyutvoice_tpu_torch.nn.flash_attention import (
-        flash_attention,
-        flash_attention_plain,
-        key_keep_mask,
-    )
 
     g = torch.Generator(device="cuda").manual_seed(9)
     h, d = 8, 64
@@ -1561,76 +1682,97 @@ def phase_serve_kernels(synth, smi):
         for a in (q, k, v):
             a[pad], a[b - 1] = a[0], a[b // 2]
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out = flash_attention(q, k, v, lengths, scale=0.125)
-        ref = flash_attention_plain(q, k, v, lengths, scale=0.125)
-        torch.cuda.synchronize()
-        err, ok = 0.0, bool(torch.equal(out[pad], out[0]))
-        for i, n in enumerate(lens):
-            err = max(err, float((out[i, :n] - ref[i, :n]).abs().max()))
-            ok &= within(out[i, :n], ref[i, :n], ATTN_TOL)
+        err, flash[key] = _serve_flash_case(key, q, k, v, lengths, smi, want_repeats=2)
         worst = max(worst, err)
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125), 200)
-        dev_ms = graph_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125))
-        plain_ms = cuda_time_ms(
-            lambda: flash_attention_plain(q, k, v, lengths, scale=0.125), 10)
-        keep = key_keep_mask(lengths, t, 0, -1)
-        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=keep, scale=0.125), 200)
-        pairs = int(keep.expand(-1, -1, t, -1).sum()) * h
-        bound_ms, bound_by = bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS)
-        log(f"serve flash B={b} T={t} lengths={lens}: max_abs_err={err:.3e} ok={ok} "
-            f"(padding row {pad} equal to row 0: {bool(torch.equal(out[pad], out[0]))}) "
-            f"ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) ({smi})")
-        if not ok:
-            fail(f"flash attention disagrees with its plain version at the serving shape "
-                 f"B={b} T={t} lengths={lens}")
-        flash[key] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms)
-        del q, k, v, qt, kt, vt, keep, out, ref
+        del q, k, v
     torch.cuda.empty_cache()
 
     cfg = synth.cfg.hift
     ks = tuple(cfg.resblock_kernel_sizes)
     dil = tuple(cfg.resblock_dilation_sizes[0])
-    n = len(ks)
     stage, stage_worst = {}, 0.0
     for key, t_mel, b in (("pair512_b4", 512, 4), ("pair512_b8", 512, 8),
                           ("pair1024_b8", 1024, 8)):
-        acc = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-        for st, t in ((1, 40 * t_mel), (2, 120 * t_mel + 1)):
-            w = rs.pack_stage_weights(synth.hift.resblocks[st * n : (st + 1) * n], dil)
-            c = synth.hift.resblocks[st * n].convs1[0].weight.shape[0]
+        for c, t in ((128, 40 * t_mel), (64, 120 * t_mel + 1)):
+            w = _stage_weights(synth, c)
             prepared = rs.prepare_stage_weights(w, c, ks, dil)
             x = torch.randn(b, t, c, device="cuda", generator=g) * 0.5
-            out = rs.resblock_stage_prepared(x, prepared)
-            ref = rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            ok = within(out, ref, STAGE_TOL)
+            err, times = _serve_stage_case(key, x, prepared, w, synth, smi)
             stage_worst = max(stage_worst, err)
-            del out, ref
-            ms = cuda_time_ms(lambda: rs.resblock_stage_prepared(x, prepared), 5, warmup=1)
-            plain_ms = cuda_time_ms(
-                lambda: rs.resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil), 2,
-                warmup=1)
-            flops = b * t * c * c * 4 * len(dil) * sum(ks)
-            bound_ms, bound_by = bound(2 * x.numel() * 4 + w.numel() * 4, 3 * flops,
-                                       PEAK_TF32_FLOPS)
-            log(f"serve resblock_stage C={c} T={t} B={b}: max_abs_err={err:.3e} ok={ok} "
-                f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                f"(3xTF32, {bound_by}) ({smi})")
-            if not ok:
-                fail(f"resblock stage disagrees with its plain version at the serving shape "
-                     f"C={c} T={t} B={b}")
-            for name, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
-                acc[name] += val
+            _add_stage(stage, key, times)
             del x
             torch.cuda.empty_cache()
-        stage[key] = acc
-        log(f"serve resblock_stage {key}: ms={acc['ms']:.4f} plain_ms={acc['plain_ms']:.4f} "
-            f"bound_ms={acc['bound_ms']:.4f} ({smi})")
+    _log_pairs(stage, "", smi)
+    return worst, stage_worst, flash, stage
+
+
+@contextlib.contextmanager
+def serving_kernel_inputs(into, label):
+    """Keeps, in `into`, a copy on the device of the first input that the
+    serving path hands kernel 1 and kernel 2 at each shape not seen yet,
+    with `label` and the call's options, for phase 6g to hold the kernels
+    to. The copies are enqueued on the calling thread's stream (no sync)."""
+    from jyutvoice_tpu_torch.models import hift
+    from jyutvoice_tpu_torch.nn import attention
+
+    real_flash, real_stage = attention.flash_attention, hift.resblock_stage_prepared
+
+    def flash_probe(q, k, v, lengths, **kw):
+        key = ("flash_attention", tuple(q.shape))
+        if key not in into:
+            into[key] = dict(label=label, inputs=[a.clone() for a in (q, k, v, lengths)],
+                             kw=kw)
+        return real_flash(q, k, v, lengths, **kw)
+
+    def stage_probe(x, prepared):
+        key = ("resblock_stage", tuple(x.shape))
+        if key not in into:
+            into[key] = dict(label=label, inputs=[x.clone()], prepared=prepared)
+        return real_stage(x, prepared)
+
+    attention.flash_attention, hift.resblock_stage_prepared = flash_probe, stage_probe
+    try:
+        yield into
+    finally:
+        attention.flash_attention, hift.resblock_stage_prepared = real_flash, real_stage
+
+
+def phase_serve_path_kernels(synth, captured, smi):
+    """Kernels 1 and 2 on the inputs that phase 6f's engine groups handed
+    them (`serving_kernel_inputs`): the first call at each shape, with the
+    lengths, padding rows, prompt rows and stage weights the batch path
+    made. Kernel 1 against its plain version on the valid rows (a row that
+    repeats an earlier one must equal it bit for bit), kernel 2 on every
+    row, timed as in phase 6e. Returns (kernel 1's max |err|, kernel 2's,
+    kernel 1's times, kernel 2's pair times), keyed by batch and bucket."""
+    import torch
+
+    torch.cuda.synchronize()
+    flash_keys = sorted(k for k in captured if k[0] == "flash_attention")
+    stage_keys = sorted(k for k in captured if k[0] == "resblock_stage")
+    if not flash_keys or not stage_keys:
+        fail(f"phase 6f handed no input to kernel 1 or kernel 2: {sorted(captured)}")
+    worst, flash = 0.0, {}
+    for key in flash_keys:
+        case = captured.pop(key)
+        b, t = key[1][:2]
+        err, flash[f"b{b}_t{t}"] = _serve_flash_case(
+            f"({case['label']})", *case["inputs"], smi, **case["kw"])
+        worst = max(worst, err)
+        del case
+    torch.cuda.empty_cache()
+    stage_worst, stage = 0.0, {}
+    for key in stage_keys:
+        case = captured.pop(key)
+        b, t, c = key[1]
+        name = f"pair{t // 40 if c == 128 else (t - 1) // 120}_b{b}"
+        err, times = _serve_stage_case(f"{name} ({case['label']})", case["inputs"][0],
+                                       case["prepared"], _stage_weights(synth, c), synth, smi)
+        stage_worst = max(stage_worst, err)
+        _add_stage(stage, name, times)
+        del case
+        torch.cuda.empty_cache()
+    _log_pairs(stage, " (phase 6f's inputs)", smi)
     return worst, stage_worst, flash, stage
 
 
@@ -1651,13 +1793,15 @@ SERVE_LONGER = dict(text="佢 係 邊 個 今 日 天 氣 好 多 謝 晒 食", 
                     phone="keoi5 hai6 bin1 go3 gam1 jat6 tin1 hei3 hou2 do1 ze6 saai3 sik6")
 
 
-def _serve_group(engine, items, direct, label, want_dispatches, smi):
+def _serve_group(engine, items, direct, label, want_dispatches, smi, capture=None):
     """Submit `items` at once, wait for every result, and hold each against
     the direct request in `direct` (a SynthesisResult of synthesize(...,
     pcm16=True)): mel frames equal, mel MAE < 1e-2; the largest waveform gap
     is printed in PCM16 steps. Fails unless the group was one batch of
     `want_dispatches` dispatches of 560 kernel-1 and 2 kernel-2 launches
-    each. Returns (launches, wall s, audio s)."""
+    each. With a dict `capture`, kernels 1 and 2's inputs at shapes not seen
+    yet go into it (`serving_kernel_inputs`). Returns (launches, wall s,
+    audio s)."""
     import numpy as np
 
     from jyutvoice_tpu_torch import kernels
@@ -1666,10 +1810,12 @@ def _serve_group(engine, items, direct, label, want_dispatches, smi):
     per_dispatch = engine.n_timesteps * (est.num_mid_blocks + 2) * est.n_blocks
     d0, b0 = engine.stats.dispatches, engine.stats.batches
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    futs = [engine.submit(**it) for it in items]
-    res = [f.result(timeout=600) for f in futs]
-    wall = time.perf_counter() - t0
+    with (contextlib.nullcontext() if capture is None
+          else serving_kernel_inputs(capture, label)):
+        t0 = time.perf_counter()
+        futs = [engine.submit(**it) for it in items]
+        res = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     dispatches, batches = engine.stats.dispatches - d0, engine.stats.batches - b0
     maes, gaps = [], []
@@ -1785,20 +1931,25 @@ def phase_serve(synth, scale, clone_feats, clone_trees, clone_wav, smi):
         f"of audio, rtf {single_s / audio_s:.4f}, per request ms "
         f"{[round(r.timings['total'] * 1e3, 1) for r in singles]} ({smi})")
 
+    # kernels 1 and 2's inputs in every group but the timed warm one
+    captured = {}
     with ServingEngine(synth, max_batch=8, max_wait_ms=200.0, n_timesteps=10,
                        length_scale=scale, pcm16=True, return_mel=True) as engine:
-        for label in ("8 requests, b_pad 8 (cold)", "8 requests, b_pad 8"):
-            launches, wall, _ = _serve_group(engine, items, singles, label, 1, smi)
+        for label, capture in (("8 requests, b_pad 8 (cold)", captured),
+                               ("8 requests, b_pad 8", None)):
+            launches, wall, _ = _serve_group(engine, items, singles, label, 1, smi, capture)
             add(launches)
         log(f"serve b_pad 8 group against one by one: {wall * 1e3:.1f} ms against "
             f"{single_s * 1e3:.1f} ms, {single_s / wall:.2f}x ({smi})")
-        add(_serve_group(engine, items[:3], singles[:3], "3 requests, b_pad 4", 1, smi)[0])
+        add(_serve_group(engine, items[:3], singles[:3], "3 requests, b_pad 4", 1, smi,
+                         captured)[0])
         want_cloned, want_longer = counted(lambda: (direct(cloned), direct(SERVE_LONGER)))
         add(_serve_group(engine, items[1:4] + [cloned], singles[1:4] + [want_cloned],
-                         "3 plain + 1 cloned (250-frame prompt), b_pad 4", 1, smi)[0])
+                         "3 plain + 1 cloned (250-frame prompt), b_pad 4", 1, smi,
+                         captured)[0])
         add(_serve_group(engine, [items[3], SERVE_LONGER, items[1]],
                          [singles[3], want_longer, singles[1]],
-                         "two text partitions (buckets 32 and 96)", 2, smi)[0])
+                         "two text partitions (buckets 32 and 96)", 2, smi, captured)[0])
 
     # the long route: a text past INTERACTIVE_TEXT_CAP through synthesize_long
     long_item = dict(text=" ".join(["佢 係 邊 個"] * 40), lang="yue",
@@ -1835,18 +1986,25 @@ def phase_serve(synth, scale, clone_feats, clone_trees, clone_wav, smi):
         outs = [np.concatenate(list(h.iter_timeout(600))) for h in handles]
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
+        ticks = lane.dispatches
     add(launches)
     worst = max(float(np.abs(o - r).max() / np.abs(r).max()) if o.shape == r.shape else np.inf
                 for o, r in zip(outs, refs))
-    ticks = launches["resblock_stage"] // 2
+    # the four streams are queued before the worker has opened the first
+    # (its text half takes far longer than three submits), so all start on
+    # the first dispatch and the longest sets the count: one per chunk
+    frames = [len(o) // 480 for o in outs]
+    want_ticks = -(-max(frames) // 100)
     audio_s = sum(len(o) for o in outs) / 24000
-    log(f"serve lane: 4 streams of {[len(o) // 480 for o in outs]} frames, {ticks} dispatches, "
+    log(f"serve lane: 4 streams of {frames} frames, {ticks} dispatches (want {want_ticks}), "
         f"wall {wall * 1e3:.1f} ms for {audio_s:.2f} s of audio, aggregate rtf "
         f"{wall / audio_s:.4f}; vs single streams max |err| / max |ref| {worst:.3e} (bar "
         f"{STREAM_REL}); launches {launches} ({smi})")
     est = synth.cfg.tts.cfm.estimator
     per_tick = 10 * (est.num_mid_blocks + 2) * est.n_blocks
-    if not worst <= STREAM_REL or launches["flash_attention"] != per_tick * ticks:
+    if (not worst <= STREAM_REL or ticks != want_ticks
+            or launches["flash_attention"] != per_tick * ticks
+            or launches["resblock_stage"] != 2 * ticks):
         fail("the streaming lane failed its checks")
 
     # HTTP: the same model behind TTSServer
@@ -1951,7 +2109,7 @@ def phase_serve(synth, scale, clone_feats, clone_trees, clone_wav, smi):
     if (rc != 0 or health.get("device") != torch.cuda.get_device_name(0) or not len(pcm)
             or not any("drain" in ln for ln in lines)):
         fail("cli.serve failed its checks: " + "".join(lines)[-3000:])
-    return counts
+    return counts, captured
 
 
 def phase_reference(synth, params_tts, params_hift):
@@ -2144,13 +2302,18 @@ def main():
                  stream_pair_b4_bound_ms=stream_stage[4]["bound_ms"])
     serve_err, serve_stage_err, serve_flash, serve_stage = timed(
         "6e serve kernels", phase_serve_kernels, synth, smi)
-    serve_counts = timed("6f serve", phase_serve, synth, scale, clone_feats, clone_trees,
-                         clone_wav, smi)
+    serve_counts, captured = timed("6f serve", phase_serve, synth, scale, clone_feats,
+                                   clone_trees, clone_wav, smi)
     counts = {k: counts[k] + serve_counts.get(k, 0) for k in counts}
-    flash["max_abs_err"] = max(flash["max_abs_err"], serve_err)
-    stage["max_abs_err"] = max(stage["max_abs_err"], serve_stage_err)
-    flash.update({f"serve_{case}_{k}": v for case, d in serve_flash.items() for k, v in d.items()})
-    stage.update({f"serve_{case}_{k}": v for case, d in serve_stage.items() for k, v in d.items()})
+    path_err, path_stage_err, path_flash, path_stage = timed(
+        "6g serve path kernels", phase_serve_path_kernels, synth, captured, smi)
+    del captured
+    flash["max_abs_err"] = max(flash["max_abs_err"], serve_err, path_err)
+    stage["max_abs_err"] = max(stage["max_abs_err"], serve_stage_err, path_stage_err)
+    for kernel, cases in ((flash, serve_flash), (stage, serve_stage),
+                          (flash, {f"path_{c}": d for c, d in path_flash.items()}),
+                          (stage, {f"path_{c}": d for c, d in path_stage.items()})):
+        kernel.update({f"serve_{case}_{k}": v for case, d in cases.items() for k, v in d.items()})
     long_counts = timed("7 long form", phase_long_form, synth)
     timed("7 reference", phase_long_reference, synth, params_tts, params_hift)
     del synth

@@ -9,7 +9,10 @@ The counterpart of the JAX package's `pipeline/server.py` on one device:
     its own, partitions the group by text bucket and dispatches each part
     through `Synthesizer.synthesize_batch_dispatch` (one batch of the mel
     phase and the vocoder). Dispatch and read-back are split: group N is
-    enqueued on the device before group N-1's results are read back.
+    validated, its texts prepared and its durations enqueued while group
+    N-1's mel phase and vocoder still run on the device, and group N-1 is
+    read back after that; group N's duration read-back waits for group
+    N-1's device work (one stream), so their device work does not overlap.
     Long-form requests (text past INTERACTIVE_TEXT_CAP, or items past the
     15000-frame bucket) go through `synthesize_long` one at a time.
   * `StreamingLane`: live streams multiplexed over one
@@ -350,7 +353,9 @@ class ServingEngine:
 
     def _serve(self) -> None:
         # double-buffered: group N is dispatched before group N-1's results
-        # are read back, so the read-back overlaps the device's work
+        # are read back, so the host's text front end and validation of
+        # group N overlap group N-1's device work (N's duration read-back
+        # then waits for it)
         pending = None  # (group, finalize)
         while not self._stop.is_set():
             if pending is not None and self._q.empty():
@@ -472,6 +477,11 @@ class StreamingLane:
         self._worker = threading.Thread(target=self._run, name="jyutvoice-streaming",
                                         daemon=True)
         self._worker.start()
+
+    @property
+    def dispatches(self) -> int:
+        """Ticks that launched work so far (one chunk for every live stream)."""
+        return self._ms.dispatches
 
     def submit(
         self,

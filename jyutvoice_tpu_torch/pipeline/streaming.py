@@ -446,6 +446,7 @@ class MultiStreamSynthesizer:
         self._spk = np.zeros((max_sessions, 80), np.float32)
         self._sessions: list = [None] * max_sessions  # per-slot host state or None
         self._pending = None  # (plan, read-back) of the last dispatch
+        self.dispatches = 0  # ticks that launched work
 
     @property
     def active(self) -> int:
@@ -515,6 +516,7 @@ class MultiStreamSynthesizer:
             buf, _to_device(self._spk, ss.device), plans, self._held, self._voc_tail,
             self._src,
         )
+        self.dispatches += 1
         readback = _Readback(wav)
         # the host z / mu caches and positions advance at dispatch time: the
         # next dispatch needs them, only the waveform waits

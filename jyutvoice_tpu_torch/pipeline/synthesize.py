@@ -534,9 +534,12 @@ class Synthesizer:
         the one wait for the device. The mel phase, the vocoder and the
         copies of the waveform, the mel lengths and (with return_mel) the
         mel to pinned host memory are only enqueued, behind CUDA events;
-        `finalize` waits for those copies alone, so a server can start the
-        next batch before reading this one back. pcm16=True rounds the
-        waveform to int16 on the device and returns it as int16.
+        `finalize` waits for those copies alone, so a server can prepare the
+        next batch's texts before reading this one back. The next batch's
+        own duration read-back then waits, on the same stream, for this
+        batch's mel phase and vocoder: the device work of two batches does
+        not overlap. pcm16=True rounds the waveform to int16 on the device
+        and returns it as int16.
 
         Raises ValueError for a half or mismatched prompt pair,
         OverLongBatchItems for items past the 15000-frame bucket (with

@@ -682,7 +682,13 @@ def _cfg_rows(lens):
      (512, _cfg_rows([480, 129, 350, 480])),
      # cloned and plain rows: a 64-frame prompt bucket ahead of the mel
      # bucket, each row valid over its prompt + mel frames
-     (64 + 512, _cfg_rows([40 + 500, 0 + 311, 64 + 512, 40 + 500]))],
+     (64 + 512, _cfg_rows([40 + 500, 0 + 311, 64 + 512, 40 + 500])),
+     # the shapes of a full-width serving run: 8 requests in the 768 bucket
+     # (one pads to b_pad 8), 3 in the 384 bucket, and a 250-frame prompt in
+     # its 256 bucket beside plain rows in the 384 bucket
+     (768, _cfg_rows([480, 339, 347, 199, 576, 295, 243, 480])),
+     (384, _cfg_rows([380, 201, 97, 380])),
+     (256 + 384, _cfg_rows([250 + 243, 339, 347, 250 + 243]))],
 )
 def test_flash_kernel_at_serving_shapes(cuda, t, lengths):
     from jyutvoice_tpu_torch.nn.flash_attention import flash_attention, flash_attention_plain
@@ -701,9 +707,10 @@ def test_flash_kernel_at_serving_shapes(cuda, t, lengths):
     torch.testing.assert_close(out[pad], out[0], atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("c,t", [(128, 20480), (64, 61441)])
+@pytest.mark.parametrize("c,t", [(128, 20480), (64, 61441), (128, 30720), (64, 92161)])
 def test_resblock_stage_at_batch_8(cuda, c, t):
-    """The 512 bucket's pair, whole, at batch 8 (a full serving group)."""
+    """The 512 and 768 buckets' pairs, whole, at batch 8 (a full serving
+    group)."""
     from jyutvoice_tpu_torch.nn.resblock_stage import resblock_stage, resblock_stage_plain
 
     ks = (3, 7, 11)

@@ -294,6 +294,17 @@ def test_streaming_lane(synth):
     assert not lane._worker.is_alive()
 
 
+def test_streaming_lane_counts_its_dispatches(synth):
+    """One stream takes one dispatch per chunk of its frames."""
+    spf = synth.cfg.hift.total_upsample
+    with StreamingLane(synth, max_streams=2, chunk_frames=50, n_timesteps=2) as lane:
+        assert lane.dispatches == 0
+        wav = np.concatenate(list(lane.submit("佢係邊個", lang="yue",
+                                              phone="keoi5 hai6 bin1 go3").iter_timeout(T)))
+        assert len(wav) % spf == 0
+        assert lane.dispatches == -(-(len(wav) // spf) // 50)
+
+
 def test_streaming_lane_bad_request_isolated(synth):
     with StreamingLane(synth, max_streams=2, chunk_frames=50, n_timesteps=2) as lane:
         bad = lane.submit("hello", lang="no-such-lang")
