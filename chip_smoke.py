@@ -137,11 +137,34 @@ Phases, each printing its own lines; any failure exits non-zero:
      |q|, |k| and |v| that reach kernel 3 in the first), then 3 steps at
      the short shape (batch 16, text 128, mel 512, "plain" attention);
      then one deterministic step of a reduced-depth full-width model, its
-     losses and trainable gradients on the card against the CPU.
+     losses and trainable gradients on the card against the CPU;
+  10. the fine-tune workflow at full width (default JyutVoiceConfig,
+     seeded random trees): reference-shaped flow.pt / hift.pt stand-ins
+     through `cli.provision --assemble-pretrain` (every key audited,
+     tts_init's decoder and speaker affine bit-equal to the stand-in's);
+     `cli.provision --verify` on the card (560 kernel-1 and 2 kernel-2
+     launches per request); `prepare_dataset.process_batch` with a
+     full-width PromptExtractor on the card over 5 rows of 33-38 s (1650-1900
+     mel frames, with decoder_h), two against the CPU at phase 6b's bars;
+     `cli.train --pretrain tts_init.npz --tb-dir` on dummy rows at the
+     2048-frame bucket (56 launches each of kernels 3, 4, 5 and the
+     preparation per step; the validation pass and the validation sample's
+     four images; the decoder bit-unchanged, the encoder moved), then two
+     library steps on the prepared rows; the trained module exported
+     (tree -> save_torch_checkpoint -> provision(tts_ckpt)) and reloaded
+     bit-equal; with the seconds of each step, verify's xRT, the rows per
+     second prepared, the CLI's median step, the validation pass and the
+     sample;
+  10f. kernels 1-5 on the inputs phase 10 handed them: kernel 1 and 2 on
+     the first call at each shape of `provision --verify`, kernel 3 and its
+     backward (4, 5, the preparation) on the first fine-tune step's first
+     attention call and the gradient that reached it, each against its
+     plain version and timed as in phases 6e and 8.
 Launch counts are zeroed before and read after each request of phases 6,
 6b and 7, each streamed chunk and multi-session tick of phase 6d, each
-engine group, lane run and HTTP block of phase 6f, and each training step
-of phase 9. The line before the last is a JSON
+engine group, lane run and HTTP block of phase 6f, each training step of
+phase 9, and the verify call, each training step, the validation pass and
+the validation sample of phase 10. The line before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
 available.
@@ -535,18 +558,127 @@ def _visible_pairs(lens, t, h):
     return sum(n * n + (t - n) * (t - n) for n in lens) * h
 
 
-def phase_flash_stock_bwd():
+def _stock_bwd_case(q, k, v, do, lengths, scale, label=""):
     """Kernels 4 and 5 against the plain backward on every row (standalone,
     each preparing its own operands, and through flash_stock_bwd with one
-    shared preparation), the preparation against its plain version, kernel
-    3's residuals against the plain forward's stats, and times: the
+    shared preparation), the preparation against its plain version (tile
+    images bit for bit), kernel 3's output and residuals against the plain
+    forward's, and times: kernel 3 (with and without residuals), the
     preparation, each kernel on prepared operands, the whole backward, the
-    plain backward and SDPA's backward, beside the TF32 and bf16 bounds."""
+    plain backward and SDPA's backward, beside the TF32 and bf16 bounds.
+    Fails on a disagreement; returns ({dq, dk, dv, lse2, fwd: max |err|},
+    {dkv, dq, prep, fwd: times})."""
     import torch
     import torch.nn.functional as F
 
-    from jyutvoice_tpu_torch import kernels
     from jyutvoice_tpu_torch.nn import flash_stock as fs
+
+    b, t, h, d = q.shape
+    lens = lengths.tolist()
+    o, m, l = fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True)
+    o_ref, m_ref, l_ref = fs.flash_stock_plain(q, k, v, lengths, scale=scale, residuals=True)
+    di = fs.flash_stock_di(o, do)
+    prep = fs.flash_stock_bwd_prepare(q, k, v, do, m, l)
+    prep_ref = fs.flash_stock_bwd_prepare_plain(q, k, v, do, m, l)
+    dk, dv = fs.flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale)
+    dq = fs.flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale)
+    shared = fs.flash_stock_bwd(q, k, v, o, do, m, l, lengths, scale=scale)
+    dq_ref, dk_ref, dv_ref = fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths,
+                                                      scale=scale)
+    torch.cuda.synchronize()
+    # the residuals: the row max, and the log-sum-exp m + log l (l alone
+    # scales with the max, which 16-bit products move)
+    res_ok = (within(o, o_ref, STOCK_TOL) and within(m, m_ref, STOCK_TOL)
+              and within(m + torch.log(l), m_ref + torch.log(l_ref), STOCK_TOL))
+    fwd_err = float((o - o_ref).abs().max())
+    # the preparation: tile images bit-equal, lse2 to float rounding
+    n_tiles = prep.numel() - b * h * t
+    lse_err = float((prep[n_tiles:] - prep_ref[n_tiles:]).abs().max())
+    prep_ok = torch.equal(prep[:n_tiles], prep_ref[:n_tiles]) and within(
+        prep[n_tiles:], prep_ref[n_tiles:], (1e-6, 1e-6))
+    rel, err = {}, {}
+    for name, x, xs, y in (("dq", dq, shared[0], dq_ref), ("dk", dk, shared[1], dk_ref),
+                           ("dv", dv, shared[2], dv_ref)):
+        err[name] = max(float((x - y).abs().max()), float((xs - y).abs().max()))
+        rel[name] = err[name] / float(y.abs().max())
+    ok = res_ok and prep_ok and all(r <= BWD_BAR for r in rel.values())
+    del prep_ref, shared, o_ref
+
+    fwd_ms = cuda_time_ms(lambda: fs.flash_stock(q, k, v, lengths, scale=scale), 30)
+    fwd_plain_ms = cuda_time_ms(lambda: fs.flash_stock_plain(q, k, v, lengths, scale=scale), 5,
+                                warmup=1)
+    res_ms = cuda_time_ms(
+        lambda: fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True), 30)
+    prep_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_prepare(q, k, v, do, m, l), 30)
+    dkv_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_dkv(
+        q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep), 30)
+    dq_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_dq(
+        q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep), 30)
+    bwd_ms = cuda_time_ms(
+        lambda: fs.flash_stock_bwd(q, k, v, o, do, m, l, lengths, scale=scale), 30)
+    plain_ms = cuda_time_ms(
+        lambda: fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths, scale=scale), 5,
+        warmup=1)
+    plain_prep_ms = cuda_time_ms(
+        lambda: fs.flash_stock_bwd_prepare_plain(q, k, v, do, m, l), 5, warmup=1)
+    # SDPA's forward and backward with the boolean segment mask (the
+    # backward timed alone)
+    keep = fs.segment_keep_mask(lengths, t)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v))
+    with torch.no_grad():
+        fwd_lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep, scale=scale), 30)
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=scale)
+    dot = do.transpose(1, 2).contiguous()
+    lib_ms = cuda_time_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
+    del out, qt, kt, vt, keep
+
+    pairs = _visible_pairs(lens, t, h)
+    io = b * t * h * d * 4  # one (B, T, H, D) f32 tensor
+    rows = b * h * t * 4  # one (B, H, T) f32 tensor
+    fwd_bound = bound(4 * io, 4 * pairs * d, PEAK_BF16_FLOPS)
+    dkv_bound = bound(4 * io + 3 * rows + 2 * io, 8 * pairs * d, PEAK_TF32_FLOPS)
+    dq_bound = bound(4 * io + 3 * rows + io, 6 * pairs * d, PEAK_TF32_FLOPS)
+    dkv_bf16 = bound(4 * io + 3 * rows + 2 * io, 8 * pairs * d, PEAK_BF16_FLOPS)[0]
+    dq_bf16 = bound(4 * io + 3 * rows + io, 6 * pairs * d, PEAK_BF16_FLOPS)[0]
+    prep_bound = bound(4 * io + 2 * rows + 7 * io + rows, 0, PEAK_TF32_FLOPS)
+    log(f"flash_stock_bwd{label} T={t} B={b} lengths={lens} D={d}: rel_err dq={rel['dq']:.2e} "
+        f"dk={rel['dk']:.2e} dv={rel['dv']:.2e} (max_abs_err dq={err['dq']:.3e} "
+        f"dk={err['dk']:.3e} dv={err['dv']:.3e}) "
+        f"residuals_ok={res_ok} (fwd max_abs_err {fwd_err:.3e}) "
+        f"prep_ok={prep_ok} (lse2 max_abs_err {lse_err:.1e}) ok={ok} "
+        f"prep_ms={prep_ms:.4f} (bound {prep_bound[0]:.4f}, plain {plain_prep_ms:.4f}) "
+        f"dkv_ms={dkv_ms:.4f} ({8 * pairs * d / dkv_ms / 1e9:.1f} TFLOP/s, bound TF32 "
+        f"{dkv_bound[0]:.4f} bf16 {dkv_bf16:.4f}) dq_ms={dq_ms:.4f} "
+        f"({6 * pairs * d / dq_ms / 1e9:.1f} TFLOP/s, bound TF32 {dq_bound[0]:.4f} bf16 "
+        f"{dq_bf16:.4f}) prep+dkv+dq={prep_ms + dkv_ms + dq_ms:.4f} "
+        f"flash_stock_bwd_ms={bwd_ms:.4f} plain_bwd_ms={plain_ms:.4f} "
+        f"sdpa_bwd_ms={lib_ms:.4f} fwd_ms={fwd_ms:.4f} (plain {fwd_plain_ms:.4f}, sdpa "
+        f"{fwd_lib_ms:.4f}, bound {fwd_bound[0]:.4f}) fwd_residuals_ms={res_ms:.4f}")
+    if not ok:
+        fail(f"the stock flash backward disagrees with its plain version{label} at T={t} D={d}")
+    errs = dict(err, lse2=lse_err, fwd=fwd_err)
+    times = {
+        "dkv": dict(ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+                    bound_bf16_ms=dkv_bf16, library_ms=lib_ms),
+        "dq": dict(ms=dq_ms, plain_ms=plain_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1],
+                   bound_bf16_ms=dq_bf16, library_ms=lib_ms),
+        "prep": dict(ms=prep_ms, plain_ms=plain_prep_ms, bound_ms=prep_bound[0],
+                     bound_by=prep_bound[1], library_ms=None),
+        "fwd": dict(ms=fwd_ms, plain_ms=fwd_plain_ms, bound_ms=fwd_bound[0],
+                    bound_by=fwd_bound[1], library_ms=fwd_lib_ms),
+    }
+    return errs, times
+
+
+def phase_flash_stock_bwd():
+    """Kernels 4 and 5 and their preparation (`_stock_bwd_case`) at the
+    long-form training shapes T = 2048, 2560, 4096, at D = 128, and at the
+    short training shape (batch 16, T = 512), on random operands."""
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
 
     g = torch.Generator(device="cuda").manual_seed(5)
     h = 8
@@ -555,8 +687,6 @@ def phase_flash_stock_bwd():
     log(f"flash_stock_bwd at D=128 (ptxas): {spills}")
     worst = {"dkv": 0.0, "dq": 0.0, "prep": 0.0}
     main = None
-    # the long-form training shapes and D=128, then the short training
-    # shape (batch 16, mel 512)
     cases = ((2048, [2048, 1700], 64), (2560, [2560, 2148], 64), (4096, [4096, 3001], 64),
              (2048, [2048, 1700], 128), (512, [512 - 4 * i for i in range(16)], 64))
     for t, lens, d in cases:
@@ -566,94 +696,14 @@ def phase_flash_stock_bwd():
         q, k, v = (x.view(b, t, h, d) for x in qkv.split(h * d, dim=-1))
         do = torch.randn(b, t, h, d, device="cuda", generator=g)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        scale = d ** -0.5
-        o, m, l = fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True)
-        o_ref, m_ref, l_ref = fs.flash_stock_plain(q, k, v, lengths, scale=scale, residuals=True)
-        di = fs.flash_stock_di(o, do)
-        prep = fs.flash_stock_bwd_prepare(q, k, v, do, m, l)
-        prep_ref = fs.flash_stock_bwd_prepare_plain(q, k, v, do, m, l)
-        dk, dv = fs.flash_stock_bwd_dkv(q, k, v, do, m, l, di, lengths, scale=scale)
-        dq = fs.flash_stock_bwd_dq(q, k, v, do, m, l, di, lengths, scale=scale)
-        shared = fs.flash_stock_bwd(q, k, v, o, do, m, l, lengths, scale=scale)
-        dq_ref, dk_ref, dv_ref = fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths,
-                                                          scale=scale)
-        torch.cuda.synchronize()
-        # the residuals: the row max, and the log-sum-exp m + log l (l alone
-        # scales with the max, which 16-bit products move)
-        res_ok = (within(o, o_ref, STOCK_TOL) and within(m, m_ref, STOCK_TOL)
-                  and within(m + torch.log(l), m_ref + torch.log(l_ref), STOCK_TOL))
-        # the preparation: tile images bit-equal, lse2 to float rounding
-        n_tiles = prep.numel() - b * h * t
-        lse_err = float((prep[n_tiles:] - prep_ref[n_tiles:]).abs().max())
-        prep_ok = torch.equal(prep[:n_tiles], prep_ref[:n_tiles]) and within(
-            prep[n_tiles:], prep_ref[n_tiles:], (1e-6, 1e-6))
-        rel, err = {}, {}
-        for name, x, xs, y in (("dq", dq, shared[0], dq_ref), ("dk", dk, shared[1], dk_ref),
-                               ("dv", dv, shared[2], dv_ref)):
-            err[name] = max(float((x - y).abs().max()), float((xs - y).abs().max()))
-            rel[name] = err[name] / float(y.abs().max())
-        ok = res_ok and prep_ok and all(r <= BWD_BAR for r in rel.values())
+        err, times = _stock_bwd_case(q, k, v, do, lengths, d ** -0.5)
         worst["dkv"] = max(worst["dkv"], err["dk"], err["dv"])
         worst["dq"] = max(worst["dq"], err["dq"])
-        worst["prep"] = max(worst["prep"], lse_err)
-        del prep_ref, shared
-
-        fwd_ms = cuda_time_ms(lambda: fs.flash_stock(q, k, v, lengths, scale=scale), 30)
-        res_ms = cuda_time_ms(
-            lambda: fs.flash_stock(q, k, v, lengths, scale=scale, residuals=True), 30)
-        prep_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_prepare(q, k, v, do, m, l), 30)
-        dkv_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_dkv(
-            q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep), 30)
-        dq_ms = cuda_time_ms(lambda: fs.flash_stock_bwd_dq(
-            q, k, v, do, m, l, di, lengths, scale=scale, prepared=prep), 30)
-        bwd_ms = cuda_time_ms(
-            lambda: fs.flash_stock_bwd(q, k, v, o, do, m, l, lengths, scale=scale), 30)
-        plain_ms = cuda_time_ms(
-            lambda: fs.flash_stock_bwd_plain(q, k, v, o, do, m, l, lengths, scale=scale), 5,
-            warmup=1)
-        plain_prep_ms = cuda_time_ms(
-            lambda: fs.flash_stock_bwd_prepare_plain(q, k, v, do, m, l), 5, warmup=1)
-        # SDPA's backward with the boolean segment mask, the backward only
-        keep = fs.segment_keep_mask(lengths, t)
-        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_() for a in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=scale)
-        dot = do.transpose(1, 2).contiguous()
-        lib_ms = cuda_time_ms(
-            lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), 10)
-        del out, qt, kt, vt, keep
-
-        pairs = _visible_pairs(lens, t, h)
-        io = b * t * h * d * 4  # one (B, T, H, D) f32 tensor
-        rows = b * h * t * 4  # one (B, H, T) f32 tensor
-        dkv_bound = bound(4 * io + 3 * rows + 2 * io, 8 * pairs * d, PEAK_TF32_FLOPS)
-        dq_bound = bound(4 * io + 3 * rows + io, 6 * pairs * d, PEAK_TF32_FLOPS)
-        dkv_bf16 = bound(4 * io + 3 * rows + 2 * io, 8 * pairs * d, PEAK_BF16_FLOPS)[0]
-        dq_bf16 = bound(4 * io + 3 * rows + io, 6 * pairs * d, PEAK_BF16_FLOPS)[0]
-        prep_bound = bound(4 * io + 2 * rows + 7 * io + rows, 0, PEAK_TF32_FLOPS)
-        log(f"flash_stock_bwd T={t} B={b} lengths={lens} D={d}: rel_err dq={rel['dq']:.2e} "
-            f"dk={rel['dk']:.2e} dv={rel['dv']:.2e} (max_abs_err dq={err['dq']:.3e} "
-            f"dk={err['dk']:.3e} dv={err['dv']:.3e}) "
-            f"residuals_ok={res_ok} "
-            f"prep_ok={prep_ok} (lse2 max_abs_err {lse_err:.1e}) ok={ok} "
-            f"prep_ms={prep_ms:.4f} (bound {prep_bound[0]:.4f}, plain {plain_prep_ms:.4f}) "
-            f"dkv_ms={dkv_ms:.4f} ({8 * pairs * d / dkv_ms / 1e9:.1f} TFLOP/s, bound TF32 "
-            f"{dkv_bound[0]:.4f} bf16 {dkv_bf16:.4f}) dq_ms={dq_ms:.4f} "
-            f"({6 * pairs * d / dq_ms / 1e9:.1f} TFLOP/s, bound TF32 {dq_bound[0]:.4f} bf16 "
-            f"{dq_bf16:.4f}) prep+dkv+dq={prep_ms + dkv_ms + dq_ms:.4f} "
-            f"flash_stock_bwd_ms={bwd_ms:.4f} plain_bwd_ms={plain_ms:.4f} "
-            f"sdpa_bwd_ms={lib_ms:.4f} fwd_ms={fwd_ms:.4f} fwd_residuals_ms={res_ms:.4f}")
-        if not ok:
-            fail(f"the stock flash backward disagrees with its plain version at T={t} D={d}")
+        worst["prep"] = max(worst["prep"], err["lse2"])
         if (t, d) == (2048, 64):  # the training step's shape
-            main = {
-                "dkv": dict(ms=dkv_ms, plain_ms=plain_ms, bound_ms=dkv_bound[0],
-                            bound_by=dkv_bound[1], bound_bf16_ms=dkv_bf16, library_ms=lib_ms),
-                "dq": dict(ms=dq_ms, plain_ms=plain_ms, bound_ms=dq_bound[0],
-                           bound_by=dq_bound[1], bound_bf16_ms=dq_bf16, library_ms=lib_ms),
-                "prep": dict(ms=prep_ms, plain_ms=plain_prep_ms, bound_ms=prep_bound[0],
-                             bound_by=prep_bound[1], library_ms=None, spills_d128=spills),
-            }
-    return {k: dict(max_abs_err=worst[k], **main[k]) for k in main}
+            main = times
+            main["prep"]["spills_d128"] = spills
+    return {k: dict(max_abs_err=worst[k], **main[k]) for k in worst}
 
 
 FP16_MAX = 65504.0  # kernel 3 rounds q, k and v to fp16
@@ -2240,6 +2290,606 @@ def phase_long_reference(synth, params_tts, params_hift):
             fail(f"the card's long-form output ({label}) does not agree with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the fine-tune workflow (provision -> verify -> prepare -> train
+# -> export)
+# ---------------------------------------------------------------------------
+
+
+def flow_encoder_state(tree):
+    """The reference's state_dict names (flow.pt's encoder half) for a
+    JAX-layout flow-encoder tree: the inverse of `convert_flow_encoder`."""
+    import numpy as np
+
+    sd = {}
+
+    def lin(name, p, conv1x1=False):
+        w = np.asarray(p["w"]).T
+        sd[f"{name}.weight"] = w[:, :, None] if conv1x1 else w
+        if "b" in p:
+            sd[f"{name}.bias"] = np.asarray(p["b"])
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(p["g"]), np.asarray(p["b"])
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = np.asarray(p["w"]).transpose(2, 1, 0)
+        sd[f"{name}.bias"] = np.asarray(p["b"])
+
+    def layer(name, p):
+        a = p["attn"]
+        for src, dst in (("q", "linear_q"), ("k", "linear_k"), ("v", "linear_v"),
+                         ("o", "linear_out"), ("pos", "linear_pos")):
+            lin(f"{name}.self_attn.{dst}", a[src])
+        sd[f"{name}.self_attn.pos_bias_u"] = np.asarray(a["pos_bias_u"])
+        sd[f"{name}.self_attn.pos_bias_v"] = np.asarray(a["pos_bias_v"])
+        ln(f"{name}.norm_mha", p["norm_mha"])
+        lin(f"{name}.feed_forward.w_1", p["ff"]["w1"])
+        lin(f"{name}.feed_forward.w_2", p["ff"]["w2"])
+        ln(f"{name}.norm_ff", p["norm_ff"])
+        if "ff_macaron" in p:
+            lin(f"{name}.feed_forward_macaron.w_1", p["ff_macaron"]["w1"])
+            lin(f"{name}.feed_forward_macaron.w_2", p["ff_macaron"]["w2"])
+            ln(f"{name}.norm_ff_macaron", p["norm_ff_macaron"])
+        if "conv" in p:
+            c = f"{name}.conv_module"
+            lin(f"{c}.pointwise_conv1", p["conv"]["pw1"], conv1x1=True)
+            sd[f"{c}.depthwise_conv.weight"] = np.asarray(p["conv"]["dw"]["w"]).T[:, None, :]
+            sd[f"{c}.depthwise_conv.bias"] = np.asarray(p["conv"]["dw"]["b"])
+            n = p["conv"]["norm"]
+            if "mean" in n:
+                for src, dst in (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
+                                 ("var", "running_var")):
+                    sd[f"{c}.norm.{dst}"] = np.asarray(n[src])
+                sd[f"{c}.norm.num_batches_tracked"] = np.array(0)
+            else:
+                ln(f"{c}.norm", n)
+            lin(f"{c}.pointwise_conv2", p["conv"]["pw2"], conv1x1=True)
+            ln(f"{name}.norm_conv", p["norm_conv"])
+            ln(f"{name}.norm_final", p["norm_final"])
+
+    sd["input_embedding.weight"] = np.asarray(tree["input_embedding"]["w"])
+    lin("encoder.embed.out.0", tree["embed"]["linear"])
+    ln("encoder.embed.out.1", tree["embed"]["norm"])
+    conv("encoder.pre_lookahead_layer.conv1", tree["pre_lookahead"]["conv1"])
+    conv("encoder.pre_lookahead_layer.conv2", tree["pre_lookahead"]["conv2"])
+    for i, p in enumerate(tree["encoders"]):
+        layer(f"encoder.encoders.{i}", p)
+    conv("encoder.up_layer.conv", tree["up_conv"])
+    lin("encoder.up_embed.out.0", tree["up_embed"]["linear"])
+    ln("encoder.up_embed.out.1", tree["up_embed"]["norm"])
+    for i, p in enumerate(tree["up_encoders"]):
+        layer(f"encoder.up_encoders.{i}", p)
+    ln("encoder.after_norm", tree["after_norm"])
+    lin("encoder_proj", tree["encoder_proj"])
+    return sd
+
+
+def hift_state(tree):
+    """The reference's HiFT state_dict names (hift.pt) for a JAX-layout HiFT
+    tree: the inverse of `convert_hift`, plain weights in place of weight
+    norm."""
+    import numpy as np
+
+    sd = {}
+
+    def conv(name, p, transpose=False):
+        w = np.asarray(p["w"])
+        sd[f"{name}.weight"] = w.transpose(1, 2, 0) if transpose else w.transpose(2, 1, 0)
+        sd[f"{name}.bias"] = np.asarray(p["b"])
+
+    def resblock(name, p):
+        for j in range(len(p["convs1"])):
+            conv(f"{name}.convs1.{j}", p["convs1"][j])
+            conv(f"{name}.convs2.{j}", p["convs2"][j])
+            sd[f"{name}.activations1.{j}.alpha"] = np.asarray(p["alphas1"][j])
+            sd[f"{name}.activations2.{j}.alpha"] = np.asarray(p["alphas2"][j])
+
+    for i, c in enumerate(tree["f0_predictor"]["convs"]):
+        conv(f"f0_predictor.condnet.{2 * i}", c)
+    for name, p in (("f0_predictor.classifier", tree["f0_predictor"]["classifier"]),
+                    ("m_source.l_linear", tree["m_source"]["l_linear"])):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(p["w"]).T, np.asarray(p["b"])
+    conv("conv_pre", tree["conv_pre"])
+    for i, p in enumerate(tree["ups"]):
+        conv(f"ups.{i}", p, transpose=True)
+    for i, p in enumerate(tree["source_downs"]):
+        conv(f"source_downs.{i}", p["conv"])
+    for i, p in enumerate(tree["source_resblocks"]):
+        resblock(f"source_resblocks.{i}", p)
+    for i, p in enumerate(tree["resblocks"]):
+        resblock(f"resblocks.{i}", p)
+    conv("conv_post", tree["conv_post"])
+    return sd
+
+
+def _save_state(path, sd):
+    import numpy as np
+    import torch
+
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, path)
+
+
+def _same_leaves(a, b, prefixes=None):
+    """Whether two trees hold bit-equal leaves under the same paths (only
+    those starting with one of `prefixes`, when given)."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch.weights.from_jax import _flatten
+
+    fa, fb = _flatten(a), _flatten(b)
+    if prefixes:
+        fa = {k: v for k, v in fa.items() if k.startswith(prefixes)}
+        fb = {k: v for k, v in fb.items() if k.startswith(prefixes)}
+    return bool(fa) and set(fa) == set(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def _speech(seconds, sr, seed):
+    """A voiced, amplitude-modulated signal with a little noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    x = sum(np.sin(k * phase) / k for k in range(1, 12))
+    x *= 0.5 + 0.5 * np.sin(2 * np.pi * 3.1 * t) ** 2
+    return (0.2 * x / np.abs(x).max() + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+# prepared rows: 33-38 s (1650-1900 mel frames), so their batches land in
+# the 2048-frame bucket
+FT_ROWS = ((33.0, 24000), (38.0, 16000), (35.5, 44100), (36.5, 24000), (34.0, 16000))
+FT_TEXT = ("佢 係 邊 個 今 日 天 氣 好 多 謝 晒", "keoi5 hai6 bin1 go3 gam1 jat6 tin1 hei3 "
+           "hou2 do1 ze6 saai3")
+FT_SEED = 0  # dummy rows of 1400-2000 frames: every batch of 2 at the 2048 bucket
+
+
+@contextlib.contextmanager
+def finetune_kernel_inputs(into):
+    """Keeps, in `into["flash_stock"]`, the first input that kernel 3 gets
+    under autograd (q, k, v, lengths and the call's options) and the
+    gradient that then reaches its output (the `do` of kernels 4 and 5),
+    for phase 10f to hold kernels 3, 4 and 5 to."""
+    from jyutvoice_tpu_torch.nn import attention
+
+    real = attention.flash_stock
+
+    def probe(q, k, v, lengths, **kw):
+        out = real(q, k, v, lengths, **kw)
+        if "flash_stock" not in into and out.requires_grad:
+            case = dict(inputs=[a.detach().clone() for a in (q, k, v, lengths)], kw=kw)
+            into["flash_stock"] = case
+            out.register_hook(lambda g: case.setdefault("do", g.detach().clone()))
+        return out
+
+    attention.flash_stock = probe
+    try:
+        yield into
+    finally:
+        attention.flash_stock = real
+
+
+class _RecordingWriter:
+    """A SummaryWriter stand-in that keeps the images it is given."""
+
+    def __init__(self):
+        self.images = {}
+
+    def add_image(self, tag, img, step, dataformats):
+        self.images[tag] = img.shape
+
+
+def phase_finetune(smi):
+    """The fine-tune workflow at full width (default JyutVoiceConfig, seeded
+    random trees), through the entry points a user calls:
+      (a) reference-shaped flow.pt and hift.pt stand-ins ->
+          `cli.provision --assemble-pretrain` (strict audit);
+      (b) `cli.provision --verify` on the card (kernels 1 and 2);
+      (c) `prepare_dataset.process_batch` with a full-width PromptExtractor
+          on the card over 5 rows of 33-38 s, two rows against the CPU;
+      (d) `cli.train --pretrain tts_init.npz --tb-dir` on dummy rows at the
+          2048-frame bucket (kernels 3, 4, 5), then two library steps on
+          the prepared rows;
+      (e) the trained module -> tree -> `save_torch_checkpoint` ->
+          `provision(tts_ckpt=...)` -> reloaded bit-equal.
+    Returns (the launch counts, the kernel inputs kept for phase 10f, the
+    HiFT tree, the timings)."""
+    import logging
+    import re
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.cli import provision as cli_provision
+    from jyutvoice_tpu_torch.cli import train as cli_train
+    from jyutvoice_tpu_torch.cli.prepare_dataset import process_batch
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig, TrainConfig
+    from jyutvoice_tpu_torch.models.tts import TTS
+    from jyutvoice_tpu_torch.pipeline.prompt import PromptExtractor
+    from jyutvoice_tpu_torch.train import checkpoints as ckpt
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.utils.tb_logging import TrainLogger
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import (
+        jax_params_from_module,
+        load_jax_params,
+        load_pytree_npz,
+    )
+    from jyutvoice_tpu_torch.weights.provision import provision
+    from jyutvoice_tpu_torch.weights.torch_export import export_estimator, save_torch_checkpoint
+
+    cfg = JyutVoiceConfig()
+    est = cfg.tts.cfm.estimator
+    per_step = (est.num_mid_blocks + 2) * est.n_blocks
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    counts = dict(zero)
+    captured, times = {}, {}
+
+    def add(launches):
+        for k in counts:
+            counts[k] += launches[k]
+
+    with tempfile.TemporaryDirectory() as work:
+        # ---- (a) provision
+        t = time.perf_counter()
+        tts = random_init.init_tts_tree(cfg.tts, seed=20)
+        hift = random_init.init_hift_tree(cfg.hift, seed=21)
+        fe = random_init.init_flow_encoder_tree(cfg.flow_encoder, seed=22)
+        flow = flow_encoder_state(fe)
+        flow.update(export_estimator(tts["decoder"], "decoder.estimator."))
+        flow["spk_embed_affine_layer.weight"] = tts["spk_embed_affine_layer"]["w"].T
+        flow["spk_embed_affine_layer.bias"] = tts["spk_embed_affine_layer"]["b"]
+        flow_pt, hift_pt = os.path.join(work, "flow.pt"), os.path.join(work, "hift.pt")
+        _save_state(flow_pt, flow)
+        _save_state(hift_pt, hift_state(hift))
+        log(f"finetune (a): stand-ins flow.pt ({len(flow)} tensors) and hift.pt written in "
+            f"{time.perf_counter() - t:.1f} s")
+        audits = []
+
+        class _Audits(logging.Handler):
+            def emit(self, record):
+                audits.extend(re.findall(r"consumed (\d+)/(\d+)", record.getMessage()))
+
+        prov_log = logging.getLogger("jyutvoice_tpu_torch.weights.provision")
+        handler = _Audits()
+        prov_log.addHandler(handler)
+        prov_log.setLevel(logging.INFO)
+        out_dir = os.path.join(work, "pretrained")
+        try:
+            t = time.perf_counter()
+            written = cli_provision.main(["--flow-pt", flow_pt, "--hift-pt", hift_pt,
+                                          "--assemble-pretrain", "--out-dir", out_dir])
+            times["provision_s"] = time.perf_counter() - t
+        finally:
+            prov_log.removeHandler(handler)
+        init = load_pytree_npz(written["tts_init"])
+        checks = dict(
+            frozen_half=_same_leaves(init, tts, ("decoder/", "spk_embed_affine_layer/")),
+            flow_encoder=_same_leaves(load_pytree_npz(written["flow_encoder"]), fe),
+            hift=_same_leaves(load_pytree_npz(written["hift"]), hift),
+            random_half=_same_leaves(init, random_init.init_tts_tree(cfg.tts, seed=42),
+                                     ("encoder/", "dp/")),
+        )
+        audit_ok = len(audits) == 3 and all(a == b for a, b in audits)
+        log(f"finetune (a): cli.provision --assemble-pretrain in {times['provision_s']:.1f} s: "
+            f"{sorted(written)}; audits consumed/total {audits}; tts_init decoder and "
+            f"speaker affine bit-equal to flow.pt's: {checks['frozen_half']}; encoder and "
+            f"duration predictor = init_tts_tree(seed 42): {checks['random_half']}; "
+            f"flow_encoder.npz / hift.npz bit-equal to the written trees: "
+            f"{checks['flow_encoder']} / {checks['hift']}")
+        if not (audit_ok and all(checks.values())):
+            fail("provisioning did not reproduce the stand-ins' trees or left keys unread")
+
+        # ---- (b) verify on the card: two requests (a warm-up and a timed one)
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        with serving_kernel_inputs(captured, "provision --verify"):
+            metrics = cli_provision.main(["--verify", "--flow-pt", flow_pt, "--hift-pt", hift_pt,
+                                          "--out-dir", out_dir])
+        torch.cuda.synchronize()
+        times["verify_s"] = time.perf_counter() - t
+        launches = dict(kernels.LAUNCHES)
+        add(launches)
+        times["verify_xrt"] = metrics["xrt"]
+        want = dict(zero, flash_attention=2 * 560, resblock_stage=2 * 2)
+        log(f"finetune (b): cli.provision --verify in {times['verify_s']:.1f} s: mel_frames "
+            f"{metrics['mel_frames']}, audio {metrics['audio_seconds']} s, xRT {metrics['xrt']}; "
+            f"launches {launches} (want 560 kernel 1 and 2 kernel 2 per request, 2 requests) "
+            f"({smi})")
+        if launches != want or not metrics["xrt"] > 0:
+            fail("provision --verify did not run its requests through kernels 1 and 2")
+
+        # ---- (c) prepare rows on the card, two of them against the CPU
+        t = time.perf_counter()
+        trees = dict(flow_encoder_params=load_pytree_npz(written["flow_encoder"]),
+                     flow_encoder_cfg=cfg.flow_encoder,
+                     campplus_params=random_init.init_campplus_tree(seed=23),
+                     tokenizer_params=random_init.init_s3_tree(seed=24))
+        ex = PromptExtractor(device="cuda", **trees)
+        cpu_ex = PromptExtractor(device="cpu", **trees)
+        rows = {"text": [FT_TEXT[0]] * len(FT_ROWS), "phone": [FT_TEXT[1]] * len(FT_ROWS),
+                "lang": ["yue"] * len(FT_ROWS),
+                "audio": [{"array": _speech(s, sr, 30 + i), "sampling_rate": sr}
+                          for i, (s, sr) in enumerate(FT_ROWS)]}
+        log(f"finetune (c): full-width extractors and {len(FT_ROWS)} rows "
+            f"({', '.join(f'{s} s @ {sr}' for s, sr in FT_ROWS)}) in "
+            f"{time.perf_counter() - t:.1f} s")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        process_batch(rows, ex)
+        torch.cuda.synchronize()
+        cold = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        card = process_batch(rows, ex)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        times["prepare_rows_per_s"] = len(FT_ROWS) / warm_s
+        if any(kernels.LAUNCHES.values()):
+            fail(f"dataset preparation launched kernels: {kernels.LAUNCHES}")
+        frames = [len(m) for m in card["mel"]]
+        ok = (all(card["audio_processed"]) and all(1536 < f <= 2048 for f in frames)
+              and all(len(h) == len(m) for h, m in zip(card["decoder_h"], card["mel"])))
+        try:
+            import datasets  # noqa: F401 — only cli.prepare_dataset.main needs it
+
+            has_datasets = True
+        except ImportError:
+            has_datasets = False
+        log(f"finetune (c): process_batch on the card: cold {cold:.1f} ms, warm "
+            f"{warm_s * 1e3:.1f} ms ({times['prepare_rows_per_s']:.2f} rows/s), mel frames "
+            f"{frames}, all processed with decoder_h: {ok}; `datasets` imports: "
+            f"{has_datasets}")
+        if not ok:
+            fail("the prepared rows are not all processed at 1537-2048 frames with decoder_h")
+        t0 = time.perf_counter()
+        two = {k: v[:2] for k, v in rows.items()}
+        ref = process_batch(two, cpu_ex)
+        cpu_s = time.perf_counter() - t0
+        for i in range(2):
+            audio, sr = rows["audio"][i]["array"], rows["audio"][i]["sampling_rate"]
+            got = {k: np.asarray(card[k][i], np.float32)
+                   for k in ("mel", "spk_emb", "decoder_h")}
+            want_ = {k: np.asarray(ref[k][i], np.float32) for k in ("mel", "spk_emb")}
+            tok, tok_ref = (np.asarray(x["speech_tokens"][i]) for x in (card, ref))
+            tok_ok, n_differ, n_edge = _token_check(cpu_ex, audio, sr, tok, tok_ref)
+            # the flow encoder on identical tokens: the card's, on both sides
+            h_cpu = cpu_ex._encode_tokens(tok.astype(np.int32))[: len(got["decoder_h"])]
+            log_err, mel_ratio = _mel_err(got["mel"], want_["mel"])
+            errs = dict(spk_emb=_rel(got["spk_emb"], want_["spk_emb"]),
+                        decoder_h=_rel(got["decoder_h"], h_cpu))
+            ids_ok = all(card[k][i] == ref[k][i] for k in
+                         ("phone_ids", "tones", "word_pos", "syllable_pos", "lang_ids"))
+            log(f"finetune (c): row {i} card vs CPU: mel frames {len(got['mel'])} (cpu "
+                f"{len(ref['mel'][i])}), tokens {len(tok)}, tokens that differ {n_differ} (at an "
+                f"FSQ edge on the cpu: {n_edge}), mel max_abs_err {log_err:.3e} (mel error / "
+                f"bar {mel_ratio:.3f}), spk_emb rel_err {errs['spk_emb']:.3e}, decoder_h (same "
+                f"tokens) rel_err {errs['decoder_h']:.3e} (bar {CLONE_REL}), ids equal {ids_ok} "
+                f"(CPU {cpu_s:.1f} s for both)")
+            if not (ids_ok and tok_ok and len(got["mel"]) == len(ref["mel"][i])
+                    and mel_ratio <= 1.0 and max(errs.values()) <= CLONE_REL):
+                fail(f"prepared row {i} on the card does not agree with the CPU")
+        prepared = [{k: card[k][i] for k in ("phone_ids", "tones", "word_pos", "syllable_pos",
+                                             "lang_ids", "mel", "spk_emb", "decoder_h")}
+                    for i in range(len(FT_ROWS))]
+        del ex, cpu_ex, card, ref
+
+        # ---- (d) train: the CLI from tts_init.npz, then two library steps
+        steps = []  # (label, y frames, ms, launches)
+        real_step = Trainer.step
+        real_val, real_sample = cli_train.validation_pass, cli_train._log_val_sample
+        label = ["cli"]
+
+        def timed_step(self, batch):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with finetune_kernel_inputs(captured):
+                out = real_step(self, batch)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            add(launches)
+            steps.append((label[0], int(batch["y"].shape[1]), (time.perf_counter() - t0) * 1e3,
+                          launches))
+            return out
+
+        def timed_val(trainer, dm):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = real_val(trainer, dm)
+            torch.cuda.synchronize()
+            times["validation_ms"] = (time.perf_counter() - t0) * 1e3
+            times["validation_launches"] = dict(kernels.LAUNCHES)
+            add(kernels.LAUNCHES)
+            return out
+
+        def timed_sample(model, dm, tb, step):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with serving_kernel_inputs(captured, "validation sample"):
+                out = real_sample(model, dm, tb, step)
+            torch.cuda.synchronize()
+            times["sample_ms"] = (time.perf_counter() - t0) * 1e3
+            times["sample_launches"] = dict(kernels.LAUNCHES)
+            times["sample_frames"] = None if out is None else int(out.mel_lengths[0])
+            add(kernels.LAUNCHES)
+            return out
+
+        ck, tb_dir = os.path.join(work, "ckpt"), os.path.join(work, "tb")
+        Trainer.step = timed_step
+        cli_train.validation_pass, cli_train._log_val_sample = timed_val, timed_sample
+        try:
+            t = time.perf_counter()
+            res = cli_train.main(["--pretrain", written["tts_init"], "--tb-dir", tb_dir,
+                                  "--dummy", "--dummy-rows", "9", "--dummy-mel", "1400,2000",
+                                  "--batch-size", "2", "--epochs", "1", "--log-every", "1",
+                                  "--seed", str(FT_SEED), "--ckpt-dir", ck])
+            times["train_cli_s"] = time.perf_counter() - t
+            state = ckpt.restore(ck, map_location="cpu")
+            tuned = TTS(cfg.tts)
+            tuned.load_state_dict(state["trainer"]["model"])
+            start = load_jax_params(TTS(cfg.tts), init)
+            frozen_ok, moved = _frozen_and_moved(start, tuned)
+            try:
+                import torch.utils.tensorboard  # noqa: F401
+
+                tb_ok = True
+            except Exception as e:  # noqa: BLE001
+                tb_ok = False
+                log(f"finetune (d): torch.utils.tensorboard does not import ({e})")
+            if tb_ok:
+                from tensorboard.backend.event_processing.event_accumulator import (
+                    EventAccumulator,
+                )
+
+                acc = EventAccumulator(tb_dir, size_guidance={"images": 0, "scalars": 0})
+                acc.Reload()
+                tags = acc.Tags()
+                images = sorted(tags["images"])
+                scalars = sorted(tags["scalars"])
+            else:
+                # the sample on the card all the same, into a recording logger
+                dm = TextMelDataModule(dummy_rows(9, seed=FT_SEED, mel_frames=(1400, 2000)),
+                                       DataConfig(batch_size=2, seed=FT_SEED))
+                rec = TrainLogger()
+                rec.writer = _RecordingWriter()
+                timed_sample(tuned.cuda(), dm, rec, res["step"])
+                tuned.cpu()
+                images, scalars = sorted(rec.writer.images), []
+            if "sample_ms" not in times or "validation_ms" not in times:
+                fail("the fine-tune CLI ran no validation pass or no validation sample")
+            cli = [s for s in steps if s[0] == "cli"]
+            ms = [s[2] for s in cli]
+            times["cli_step_ms"] = statistics.median(ms[1:])
+            want_images = ["val/alignment", "val/encoder_mel", "val/generated_mel",
+                           "val/ground_truth_mel"]
+            for i, (_, y, step_ms, launches) in enumerate(cli):
+                log(f"finetune (d): cli step {i + 1}: mel bucket {y}, {step_ms:.1f} ms, "
+                    f"launches {launches}")
+            log(f"finetune (d): cli.train --pretrain --tb-dir: {res['step']} steps in "
+                f"{times['train_cli_s']:.1f} s, median step (steps 2-{len(ms)}) "
+                f"{times['cli_step_ms']:.1f} ms, validation pass {times['validation_ms']:.1f} ms "
+                f"(launches {times['validation_launches']}), validation sample "
+                f"{times['sample_ms']:.1f} ms ({times['sample_frames']} frames, launches "
+                f"{times['sample_launches']}); torch.utils.tensorboard imported: {tb_ok}; "
+                f"images {images}; scalars {scalars}; decoder and speaker affine "
+                f"bit-equal to tts_init: {frozen_ok}; tensors moved {moved} ({smi})")
+            want = dict(zero, flash_stock=per_step, flash_stock_bwd_dkv=per_step,
+                        flash_stock_bwd_dq=per_step, flash_stock_bwd_prep=per_step)
+            if (len(cli) != 4 or any(y != 2048 or l != want for _, y, _, l in cli)
+                    or images != want_images or not frozen_ok or not moved
+                    or (tb_ok and not {"train/loss", "val/loss"} <= set(scalars))):
+                fail("the fine-tune CLI failed its checks")
+
+            # two library steps on (c)'s prepared rows
+            label[0] = "library"
+            dm = TextMelDataModule(prepared, DataConfig(batch_size=2))
+            model = load_jax_params(TTS(cfg.tts), init).cuda()
+            trainer = Trainer(model, TrainConfig(batch_size=2),
+                              torch.Generator(device="cuda").manual_seed(0))
+            losses = [float(trainer.step(batch)["loss"])
+                      for batch in list(dm.train_batches(0))[:2]]
+            lib = [s for s in steps if s[0] == "library"]
+            for i, (_, y, step_ms, launches) in enumerate(lib):
+                log(f"finetune (d): library step {i + 1} on prepared rows: mel bucket {y}, "
+                    f"{step_ms:.1f} ms, loss {losses[i]:.4f}, launches {launches}")
+            frozen_ok, moved = _frozen_and_moved(start, model.cpu())
+            if (len(lib) != 2 or any(y != 2048 or l != want for _, y, _, l in lib)
+                    or not frozen_ok or not moved or not np.isfinite(losses).all()):
+                fail("the library steps on the prepared rows failed their checks")
+        finally:
+            Trainer.step = real_step
+            cli_train.validation_pass, cli_train._log_val_sample = real_val, real_sample
+
+        # ---- (e) export: module -> tree -> reference checkpoint -> provision
+        t = time.perf_counter()
+        path = os.path.join(work, "finetuned.ckpt")
+        save_torch_checkpoint(path, jax_params_from_module(model))
+        exported = provision(tts_ckpt=path, out_dir=os.path.join(work, "export"), cfg=cfg)
+        back = load_jax_params(TTS(cfg.tts), load_pytree_npz(exported["tts"]))
+        times["export_s"] = time.perf_counter() - t
+        same = all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(model.named_parameters(), back.named_parameters()))
+        log(f"finetune (e): module -> tree -> save_torch_checkpoint -> provision(tts_ckpt) "
+            f"(strict audit) -> reloaded in {times['export_s']:.1f} s: parameters bit-equal "
+            f"to the trained module's: {same}")
+        if not same:
+            fail("the exported checkpoint does not reload to the trained parameters")
+    return counts, captured, hift, times
+
+
+def _frozen_and_moved(start, tuned):
+    """(decoder and speaker affine bit-equal in both, encoder and duration
+    predictor moved) between two TTS modules."""
+    import torch
+
+    a, b = dict(start.named_parameters()), dict(tuned.named_parameters())
+    frozen = all(torch.equal(a[n], b[n].cpu()) for n in a
+                 if n.startswith(("decoder.", "spk_embed_affine_layer.")))
+    moved = [n for n in a if not torch.equal(a[n], b[n].cpu())]
+    trained = (any(n.startswith("encoder.") for n in moved)
+               and any(n.startswith("dp.") for n in moved))
+    return frozen, len(moved) if trained else 0
+
+
+def phase_finetune_kernels(captured, hift_tree, smi):
+    """Kernels 1-5 on the inputs that phase 10 handed them: kernel 1 and 2 on
+    the first call at each shape of `provision --verify` (and of the
+    validation sample, where it took kernel 1), kernel 3 with 4 and 5 on the
+    first fine-tune step's first attention call and the gradient that
+    reached it. Returns (max |err| and times per kernel)."""
+    import types
+
+    import torch
+
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.models.hift import HiFT
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    torch.cuda.synchronize()
+    out = {"flash": (0.0, {}), "stage": (0.0, {}), "stock": None}
+    flash_keys = sorted(k for k in captured if k[0] == "flash_attention")
+    stage_keys = sorted(k for k in captured if k[0] == "resblock_stage")
+    if not flash_keys or not stage_keys or "do" not in captured.get("flash_stock", {}):
+        fail(f"phase 10 handed no input to kernel 1, 2 or 3 (or no gradient to 4/5): "
+             f"{sorted(map(str, captured))}")
+    worst, flash = 0.0, {}
+    for key in flash_keys:
+        case = captured.pop(key)
+        b, t = key[1][:2]
+        err, flash[f"b{b}_t{t}"] = _serve_flash_case(
+            f"({case['label']})", *case["inputs"], smi, **case["kw"])
+        worst = max(worst, err)
+    out["flash"] = (worst, flash)
+    cfg = JyutVoiceConfig()
+    vocoder = types.SimpleNamespace(
+        cfg=cfg, hift=load_jax_params(HiFT(cfg.hift), hift_tree).cuda().eval())
+    stage_worst, stage = 0.0, {}
+    for key in stage_keys:
+        case = captured.pop(key)
+        b, t, c = key[1]
+        name = f"pair{t // 40 if c == 128 else (t - 1) // 120}_b{b}"
+        err, times = _serve_stage_case(f"{name} ({case['label']})", case["inputs"][0],
+                                       case["prepared"], _stage_weights(vocoder, c), vocoder,
+                                       smi)
+        stage_worst = max(stage_worst, err)
+        _add_stage(stage, name, times)
+    _log_pairs(stage, " (phase 10's inputs)", smi)
+    out["stage"] = (stage_worst, stage)
+    case = captured.pop("flash_stock")
+    q, k, v, lengths = case["inputs"]
+    out["stock"] = _stock_bwd_case(q, k, v, case["do"], lengths, case["kw"]["scale"],
+                                   label=" (fine-tune step 1's inputs)")
+    del vocoder, case
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASE_S = {}  # phase name -> wall seconds, printed before the result
 
 
@@ -2321,6 +2971,24 @@ def main():
     train_counts = timed("9 train", phase_train)
     timed("9 reference", phase_train_reference)
     counts = {k: counts.get(k, 0) + long_counts.get(k, 0) + train_counts[k] for k in train_counts}
+    torch.cuda.empty_cache()
+    ft_counts, ft_captured, ft_hift, ft_times = timed("10 fine-tune", phase_finetune, smi)
+    counts = {k: counts[k] + ft_counts[k] for k in counts}
+    ft = timed("10f fine-tune kernels", phase_finetune_kernels, ft_captured, ft_hift, smi)
+    del ft_captured
+    log(f"finetune times: {json.dumps(ft_times)} ({smi})")
+    ft_err, ft_kernel = ft["stock"]
+    flash["max_abs_err"] = max(flash["max_abs_err"], ft["flash"][0])
+    stage["max_abs_err"] = max(stage["max_abs_err"], ft["stage"][0])
+    stock["max_abs_err"] = max(stock["max_abs_err"], ft_err["fwd"])
+    bwd["dkv"]["max_abs_err"] = max(bwd["dkv"]["max_abs_err"], ft_err["dk"], ft_err["dv"])
+    bwd["dq"]["max_abs_err"] = max(bwd["dq"]["max_abs_err"], ft_err["dq"])
+    bwd["prep"]["max_abs_err"] = max(bwd["prep"]["max_abs_err"], ft_err["lse2"])
+    for kernel, cases in ((flash, ft["flash"][1]), (stage, ft["stage"][1])):
+        kernel.update({f"finetune_{case}_{k}": v for case, d in cases.items() for k, v in d.items()})
+    for kernel, key in ((stock, "fwd"), (bwd["dkv"], "dkv"), (bwd["dq"], "dq"),
+                        (bwd["prep"], "prep")):
+        kernel.update({f"finetune_{k}": v for k, v in ft_kernel[key].items()})
 
     line = {"kernels": [
         dict(name="flash_attention", route="cuda",

@@ -92,10 +92,12 @@ _CONSTANTS: Dict[tuple, Tensor] = {}
 
 
 def device_constant(key, array: np.ndarray, device) -> Tensor:
-    """A numpy constant on `device`, copied there once per device."""
+    """A numpy constant on `device`, copied there once per device. On the
+    CPU too it is a copy: the arrays come from lru_caches, which a tensor
+    sharing their memory could change for every later caller."""
     k = (key, str(device))
     if k not in _CONSTANTS:
-        _CONSTANTS[k] = torch.from_numpy(np.ascontiguousarray(array)).to(device)
+        _CONSTANTS[k] = torch.tensor(np.asarray(array), device=device)
     return _CONSTANTS[k]
 
 

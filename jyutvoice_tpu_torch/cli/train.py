@@ -1,15 +1,23 @@
 """Train the text encoder and duration predictor against the frozen flow
 decoder with the PyTorch port, on one device.
 
+  python -m jyutvoice_tpu_torch.cli.train --dataset prepared \
+      --pretrain pretrained_models_tpu/tts_init.npz --tb-dir runs
   python -m jyutvoice_tpu_torch.cli.train --dummy --max-steps 100
   python -m jyutvoice_tpu_torch.cli.train --device cpu --dummy --max-steps 2
 
 The counterpart of the JAX package's `cli/train.py` on one device. Weights
-start from the seeded random tree (`weights/random_init.py`, --seed);
+start from --pretrain (an `.npz` tree such as `cli.provision
+--assemble-pretrain`'s tts_init.npz, or the reference's `.pt` / `.ckpt`),
+else from the seeded random tree (`weights/random_init.py`, --seed);
 --dummy trains on synthetic rows (--dummy-mel 1400,2000 lands batches in the
 2048 mel bucket, where the estimator takes kernels 3, 4 and 5 on the card).
 Each epoch ends with an eval-mode validation pass, whose loss keeps the best
-checkpoints in <ckpt-dir>/best. SIGTERM, SIGINT or `request_stop()` stop
+checkpoints in <ckpt-dir>/best. --tb-dir (and --wandb-project, when `wandb`
+imports) logs the training losses every --log-every steps, the validation
+losses, and after each validation pass one validation row synthesized in
+10 steps as four images (generated mel, encoder mel, ground truth,
+alignment). SIGTERM, SIGINT or `request_stop()` stop
 the run at the next step boundary and save a checkpoint; --resume continues
 from the latest checkpoint at the same batch of the same epoch with the same
 generator state, so an interrupted and resumed run takes the same steps as
@@ -56,6 +64,60 @@ def validation_pass(trainer, dm):
     return {k: v / rows for k, v in totals.items()} if rows else None
 
 
+def _log_val_sample(model, dm, tb, step):
+    """Synthesize the first validation row at its text and mel buckets (10
+    steps, the seed-0 noise) and log its generated mel, encoder mel, ground
+    truth and alignment (the reference's on_validation_end images). The
+    model runs in eval mode and gets its mode back; nothing is drawn from
+    the trainer's generator, so logging leaves the training steps as they
+    were. Returns the SynthesisOutput (on the model's device), or None when
+    there is no validation row or no image sink."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch.models.tts import synthesize_mel
+    from jyutvoice_tpu_torch.pipeline import buckets as bkt
+    from jyutvoice_tpu_torch.weights.noise import rand_noise
+
+    vbatch = next(iter(dm.valid_batches()), None)
+    if vbatch is None or (tb.writer is None and tb.wandb is None):
+        return None
+    i = 0
+    n = int(vbatch["x_lengths"][i])
+    t_text = bkt.pick_bucket(n, bkt.TEXT_BUCKETS)
+    t_mel = bkt.pick_bucket(int(vbatch["y_lengths"][i]) + 64, bkt.MEL_BUCKETS)
+    device = next(model.parameters()).device
+
+    def cut(key):
+        a = np.zeros((1, t_text), np.int64)
+        a[0, :n] = np.asarray(vbatch[key])[i, :n]
+        return torch.from_numpy(a).to(device)
+
+    spk = torch.from_numpy(np.asarray(vbatch["spk_embed"], np.float32)[i : i + 1]).to(device)
+    zero = torch.zeros((1, 0, 80), device=device)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            out = synthesize_mel(
+                model, cut("x"), torch.tensor([n], device=device), cut("lang"), cut("tone"),
+                cut("word_pos"), cut("syllable_pos"), spk, zero, zero,
+                torch.zeros((1,), dtype=torch.int32), t_mel_max=t_mel, n_timesteps=10,
+                rand_noise=rand_noise(t_mel, device=device),
+            )
+    finally:
+        model.train(was_training)
+    mel, enc_mel, attn, lens = (a.cpu().numpy() for a in
+                                (out.mel, out.encoder_mel, out.attn, out.mel_lengths))
+    frames = int(lens[0])
+    tb.mel_image("val/generated_mel", mel[0, :frames], step)
+    tb.mel_image("val/encoder_mel", enc_mel[0, :frames], step)
+    gt = np.asarray(vbatch["y"])[i, : int(vbatch["y_lengths"][i])]
+    tb.mel_image("val/ground_truth_mel", gt, step)
+    tb.attn_image("val/alignment", attn[0, :n, :frames], step)
+    return out
+
+
 def main(argv=None, cfg=None):
     parser = argparse.ArgumentParser(description="JyutVoice training (PyTorch port)")
     parser.add_argument("--dataset", default=None,
@@ -65,6 +127,8 @@ def main(argv=None, cfg=None):
                         help="synthetic row count (with --dummy)")
     parser.add_argument("--dummy-mel", default="48,160",
                         help="LO,HI synthetic mel-frame range (with --dummy)")
+    parser.add_argument("--pretrain", default=None,
+                        help="pretrained tts weights (.npz tree, or the reference's .pt/.ckpt)")
     parser.add_argument("--ckpt-dir", default="checkpoints")
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--epochs", type=int, default=None)
@@ -72,6 +136,10 @@ def main(argv=None, cfg=None):
     parser.add_argument("--lr", type=float, default=None)
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--tb-dir", default=None, help="TensorBoard log dir")
+    parser.add_argument("--wandb-project", default=None,
+                        help="optional WandB project (mirrors TensorBoard; only when "
+                             "`wandb` imports)")
     parser.add_argument("--save-every", type=int, default=500)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--validate-only", action="store_true",
@@ -91,6 +159,8 @@ def main(argv=None, cfg=None):
     from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
     from jyutvoice_tpu_torch.train.prefetch import prefetch
     from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.utils.observability import log_param_counts
+    from jyutvoice_tpu_torch.utils.tb_logging import TrainLogger
     from jyutvoice_tpu_torch.weights import random_init
     from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 
@@ -109,9 +179,16 @@ def main(argv=None, cfg=None):
     if args.lr:
         tr = dataclasses.replace(tr, learning_rate=args.lr)
 
-    log.warning("training from random weights (seed %d)", args.seed)
-    model = load_jax_params(TTS(cfg.tts), random_init.init_tts_tree(cfg.tts, seed=args.seed))
-    model = model.to(device)
+    if args.pretrain:
+        from jyutvoice_tpu_torch.cli.infer import load_params
+
+        params = load_params(args.pretrain, "tts", cfg)
+        log.info("loaded pretrained weights from %s", args.pretrain)
+    else:
+        params = random_init.init_tts_tree(cfg.tts, seed=args.seed)
+        log.warning("training from scratch (no --pretrain): random weights, seed %d",
+                    args.seed)
+    model = load_jax_params(TTS(cfg.tts), params).to(device)
     dm_cfg = DataConfig(batch_size=tr.batch_size, seed=args.seed)
     if args.dummy or not args.dataset:
         log.warning("using dummy dataset (smoke mode)")
@@ -145,6 +222,8 @@ def main(argv=None, cfg=None):
     def snapshot(epoch, batch):
         return {"trainer": trainer.state_dict(), "epoch": epoch, "batch": batch}
 
+    log_param_counts(params)
+    tb = TrainLogger(args.tb_dir, wandb_project=args.wandb_project)
     _STOP.clear()
     previous = _install_stop_handlers()
     metrics, epoch, pos = None, start_epoch, start_batch
@@ -161,6 +240,7 @@ def main(argv=None, cfg=None):
                 step = trainer.step_count
                 if step % args.log_every == 0:
                     m = {k: float(v) for k, v in metrics.items()}
+                    tb.scalars("train", m, step)
                     log.info("step %d | loss %.4f (dur %.4f prior %.4f diff %.4f) | grad %.3f "
                              "| lr %.3e | %.2f steps/s", step, m["loss"], m["dur_loss"],
                              m["prior_loss"], m["diff_loss"], m["grad_norm"], m["lr"],
@@ -178,16 +258,24 @@ def main(argv=None, cfg=None):
                 break
             avg = validation_pass(trainer, dm)
             if avg:
+                tb.scalars("val", avg, trainer.step_count)
                 log.info("epoch %d | val_loss %.4f (dur %.4f prior %.4f diff %.4f)", epoch,
                          avg["loss"], avg["dur_loss"], avg["prior_loss"], avg["diff_loss"])
                 ckpt.save_best(args.ckpt_dir, trainer.step_count, snapshot(epoch + 1, 0),
                                val_loss=avg["loss"])
+            # the validation sample's images (never fatal)
+            try:
+                _log_val_sample(model, dm, tb, trainer.step_count)
+            except Exception as e:  # noqa: BLE001
+                log.warning("val sample logging failed: %s", e)
         # an interrupted run resumes after its last batch; a finished one
         # resumes past its last epoch (and so does nothing more)
         final = snapshot(epoch, pos) if stopped else snapshot(tr.max_epochs, 0)
         ckpt.save(args.ckpt_dir, trainer.step_count, final)
         log.info("done at step %d", trainer.step_count)
     finally:
+        # flushes the event file's tail (SummaryWriter flushes every 2 min)
+        tb.close()
         if previous is not None:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)

@@ -1,4 +1,5 @@
-"""Load the JAX package's parameter trees into this package's modules.
+"""Load the JAX package's parameter trees into this package's modules, and
+turn the modules back into such trees.
 
 A JAX parameter tree is nested dicts and lists of arrays, as `init_tts` /
 `init_hift` return them or as `save_pytree_npz` writes them. The modules of
@@ -20,6 +21,12 @@ changes layouts, leaf module by leaf module:
 
 It is strict both ways: a tree leaf that no parameter takes, a parameter that
 no leaf fills, or a shape that differs raises ValueError.
+`jax_params_from_module` is its inverse: it undoes each layout change and
+raises when a parameter would be left out of the tree or a leaf module lacks
+one of its required parameters, so a model trained with this package goes
+back to the JAX layout (and on to the reference's state_dict through
+`weights/torch_export.py`). `save_pytree_npz` / `load_pytree_npz` write and
+read trees in the JAX package's `.npz` format.
 """
 
 from __future__ import annotations
@@ -112,9 +119,73 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+# leaves a leaf module may lack: biases, and a batch norm's affine pair
+_OPTIONAL = {"b", "gamma", "beta"}
+
+
+def _array(t: torch.Tensor, perm) -> np.ndarray:
+    arr = t.detach().cpu().numpy()
+    if perm:
+        arr = arr.transpose(np.argsort(perm))
+    return np.array(arr, dtype=np.float32)  # a contiguous copy
+
+
+def _unload(module: nn.Module, path: str, taken: set):
+    spec = _LEAVES.get(type(module))
+    if spec is not None:
+        node = {}
+        for key, (name, perm) in spec.items():
+            t = getattr(module, name)
+            if t is None:
+                if key not in _OPTIONAL:
+                    raise ValueError(f"{path}: the module has no {name} for the leaf {key!r}")
+                continue
+            node[key] = _array(t, perm)
+            taken.add(id(t))
+        return node
+    if isinstance(module, nn.ParameterList):
+        taken.update(id(p) for p in module)
+        return [_array(p, None) for p in module]
+    if isinstance(module, nn.ModuleList):
+        return [_unload(m, f"{path}/{i}", taken) for i, m in enumerate(module)]
+    node = {}
+    for name, param in module.named_parameters(recurse=False):
+        node[name] = _array(param, None)
+        taken.add(id(param))
+    for name, child in module.named_children():
+        node[name] = _unload(child, f"{path}/{name}" if path else name, taken)
+    return node
+
+
+def jax_params_from_module(module: nn.Module):
+    """The JAX-layout parameter tree (numpy float32 arrays) of `module`: the
+    inverse of `load_jax_params`, so that `load_jax_params(fresh, tree)`
+    reproduces the module's parameters bit for bit."""
+    taken: set = set()
+    tree = _unload(module, "", taken)
+    left = [n for n, p in module.named_parameters() if id(p) not in taken]
+    if left:
+        raise ValueError(f"parameters left out of the tree: {left}")
+    return tree
+
+
 # ---------------------------------------------------------------------------
 # .npz trees (the JAX package's save_pytree_npz format: "a/b/0/w" keys)
 # ---------------------------------------------------------------------------
+
+
+def _flatten(tree, prefix=""):
+    """nested dicts and lists -> {"a/b/0/w": array}."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
 
 
 def _listify(node):
@@ -136,6 +207,11 @@ def unflatten(flat: Dict[str, np.ndarray]):
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return _listify(root)
+
+
+def save_pytree_npz(path: str, tree) -> None:
+    """Write a parameter tree as the JAX package's `save_pytree_npz` does."""
+    np.savez(path, **_flatten(tree))
 
 
 def load_pytree_npz(path: str):

@@ -20,7 +20,11 @@ card (1e-4 of max |ref|). Serving: kernel 1 at the batched shapes (B =
 2 b_pad, a length per row, the padding rows repeating row 0, prompt-extended
 rows), kernel 2 at batch 8, and a small engine group on the card against the
 same synthesizer on the CPU (mel MAE < 1e-2, one dispatch of the whole
-group).
+group). The fine-tune workflow: `cli.provision --verify` on its default
+device (kernels 1 and 2, the CPU's mel frames), `prepare_dataset.
+process_batch` on the card against the CPU at the cloning bars, and one
+`cli.train --pretrain --tb-dir` epoch at the 2048-frame bucket (kernels 3,
+4, 5; the decoder unchanged).
 """
 
 import pytest
@@ -754,3 +758,133 @@ def test_engine_group_on_the_card_matches_the_cpu(cuda):
     for g_, w_ in zip(got, want):
         assert g_.mel_frames == w_.mel_frames and np.isfinite(g_.wav).all()
         assert np.abs(g_.mel - w_.mel).mean() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the fine-tune workflow
+# ---------------------------------------------------------------------------
+
+
+def _finetune_cfg():
+    """The small synthesizer config with a 64-d flow encoder."""
+    import dataclasses
+
+    from jyutvoice_tpu_torch import config as m
+
+    fe = m.FlowEncoderConfig(input_size=64, output_size=64, attention_heads=2,
+                             linear_units=128, num_blocks=2, num_up_blocks=1)
+    return dataclasses.replace(_small_synth_cfg(), flow_encoder=fe)
+
+
+def _flow_and_hift_pt(tmp_path, cfg):
+    """Reference-shaped flow.pt (encoder half, decoder half, speaker
+    affine) and hift.pt stand-ins of seeded random trees, written with
+    chip_smoke.py's writers and the port's torch_export."""
+    import chip_smoke
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.torch_export import export_estimator
+
+    tts = random_init.init_tts_tree(cfg.tts, seed=3)
+    flow = chip_smoke.flow_encoder_state(random_init.init_flow_encoder_tree(cfg.flow_encoder,
+                                                                            seed=4))
+    flow.update(export_estimator(tts["decoder"], "decoder.estimator."))
+    flow["spk_embed_affine_layer.weight"] = tts["spk_embed_affine_layer"]["w"].T
+    flow["spk_embed_affine_layer.bias"] = tts["spk_embed_affine_layer"]["b"]
+    paths = str(tmp_path / "flow.pt"), str(tmp_path / "hift.pt")
+    chip_smoke._save_state(paths[0], flow)
+    chip_smoke._save_state(paths[1], chip_smoke.hift_state(
+        random_init.init_hift_tree(cfg.hift, seed=5)))
+    return paths
+
+
+def test_provision_verify_runs_on_the_card(cuda, tmp_path):
+    """cli.provision --verify on its default device: provisioned under the
+    strict audit, two requests (warm-up and timed) through kernels 1 and 2,
+    the CPU's mel frames."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.cli import provision
+
+    cfg = _finetune_cfg()
+    flow_pt, hift_pt = _flow_and_hift_pt(tmp_path, cfg)
+    args = ["--verify", "--flow-pt", flow_pt, "--hift-pt", hift_pt, "--verify-text", "佢 好",
+            "--verify-lang", "yue", "--verify-phone", "keoi5 hou2"]
+    kernels.reset_launch_counts()
+    got = provision.main([*args, "--out-dir", str(tmp_path / "card")], cfg=cfg)
+    launches = dict(kernels.LAUNCHES)
+    want = provision.main([*args, "--out-dir", str(tmp_path / "cpu"), "--device", "cpu"],
+                          cfg=cfg)
+    est = cfg.tts.cfm.estimator
+    assert launches["flash_attention"] == 2 * 10 * (est.num_mid_blocks + 2) * est.n_blocks
+    assert launches["resblock_stage"] == 2 * 3  # base 64: three stages a request
+    assert got["mel_frames"] == want["mel_frames"] > 0 and got["xrt"] > 0
+    assert got["audit"].startswith("pass")
+
+
+def test_process_batch_on_the_card_matches_cpu(cuda):
+    """prepare_dataset.process_batch with the full-width extractor on the
+    card against the CPU: ids equal, the cloning bars on mel, spk_emb and
+    decoder_h, tokens equal off FSQ edges."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch.cli.prepare_dataset import process_batch
+
+    card, cpu = _cloning_extractors(cuda)
+    audio = [(_voiced(3.0, 24000), 24000), (_voiced(1.7, 16000), 16000),
+             (_voiced(2.3, 44100), 44100)]
+    rows = {"text": ["佢 好"] * 3, "phone": ["keoi5 hou2"] * 3, "lang": ["yue"] * 3,
+            "audio": [{"array": a, "sampling_rate": sr} for a, sr in audio]}
+    got, want = process_batch(rows, card), process_batch(rows, cpu)
+    assert got["audio_processed"] == want["audio_processed"] == [True] * 3
+    for i, (a, sr) in enumerate(audio):
+        for k in ("phone_ids", "tones", "word_pos", "syllable_pos", "lang_ids"):
+            assert got[k][i] == want[k][i], k
+        mel, h = (np.asarray(got[k][i], np.float32) for k in ("mel", "decoder_h"))
+        _assert_mel_close(mel, np.asarray(want["mel"][i], np.float32))
+        assert _rel(np.asarray(got["spk_emb"][i]), np.asarray(want["spk_emb"][i])) <= CLONE_REL
+        tok = np.asarray(got["speech_tokens"][i], np.int32)
+        _assert_tokens(tok, np.asarray(want["speech_tokens"][i], np.int32),
+                       _token_edges(cpu, a, sr))
+        assert h.shape == mel.shape
+        assert _rel(h, cpu._encode_tokens(tok)[: len(h)]) <= CLONE_REL
+
+
+def test_train_cli_pretrain_tb_dir_on_the_card(cuda, tmp_path):
+    """One cli.train epoch on its default device from an .npz --pretrain
+    tree with --tb-dir, at the 2048-frame bucket: kernels 3, 4 and 5 in
+    every step, the decoder bit-unchanged, event files written when
+    tensorboard imports."""
+    import glob
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.cli import train
+    from jyutvoice_tpu_torch.models.tts import TTS
+    from jyutvoice_tpu_torch.train import checkpoints
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params, save_pytree_npz
+
+    cfg = _finetune_cfg()
+    tree = random_init.init_tts_tree(cfg.tts, seed=6)
+    save_pytree_npz(str(tmp_path / "init.npz"), tree)
+    kernels.reset_launch_counts()
+    out = train.main(["--pretrain", str(tmp_path / "init.npz"), "--tb-dir", str(tmp_path / "tb"),
+                      "--dummy", "--dummy-rows", "9", "--dummy-mel", "1400,2000",
+                      "--batch-size", "2", "--epochs", "1", "--seed", "0",
+                      "--ckpt-dir", str(tmp_path / "ck")], cfg=cfg)
+    assert out["step"] == 4
+    est = cfg.tts.cfm.estimator
+    per_step = (est.num_mid_blocks + 2) * est.n_blocks
+    for k in ("flash_stock_bwd_dkv", "flash_stock_bwd_dq", "flash_stock_bwd_prep"):
+        assert kernels.LAUNCHES[k] == 4 * per_step, k
+    # the steps, and the validation pass's forward at the 2048 bucket
+    assert kernels.LAUNCHES["flash_stock"] == 5 * per_step
+    start = dict(load_jax_params(TTS(cfg.tts), tree).named_parameters())
+    model = checkpoints.restore(str(tmp_path / "ck"), map_location="cpu")["trainer"]["model"]
+    for n, p in start.items():
+        if n.startswith(("decoder.", "spk_embed_affine_layer.")):
+            assert torch.equal(model[n], p), n
+    assert not torch.equal(model["encoder.emb.weight"], start["encoder.emb.weight"])
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+    except Exception:  # noqa: BLE001 — tensorboard is optional on the card's machine
+        return
+    assert glob.glob(str(tmp_path / "tb" / "events.out.tfevents.*"))

@@ -34,6 +34,7 @@ from jyutvoice_tpu_torch.audio import fbank, mel, resample, whisper_mel
 from jyutvoice_tpu_torch.models import campplus, flow_encoder, s3_tokenizer
 from jyutvoice_tpu_torch.nn import attention
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+from chip_smoke import flow_encoder_state, hift_state
 
 ATOL, RTOL = 1e-5, 1e-4
 
@@ -366,73 +367,6 @@ def _assert_same_tree(a, b, path=""):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=path)
 
 
-def _flow_encoder_sd(tree, cfg):
-    """The reference's flow-encoder state_dict names for a JAX-layout tree
-    (the inverse of `convert_flow_encoder`)."""
-    sd = {}
-
-    def lin(name, p, conv1x1=False):
-        w = np.asarray(p["w"]).T
-        sd[f"{name}.weight"] = w[:, :, None] if conv1x1 else w
-        if "b" in p:
-            sd[f"{name}.bias"] = np.asarray(p["b"])
-
-    def ln(name, p):
-        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(p["g"]), np.asarray(p["b"])
-
-    def conv(name, p):
-        sd[f"{name}.weight"] = np.asarray(p["w"]).transpose(2, 1, 0)
-        sd[f"{name}.bias"] = np.asarray(p["b"])
-
-    def layer(name, p):
-        a = p["attn"]
-        for src, dst in (("q", "linear_q"), ("k", "linear_k"), ("v", "linear_v"),
-                         ("o", "linear_out"), ("pos", "linear_pos")):
-            lin(f"{name}.self_attn.{dst}", a[src])
-        sd[f"{name}.self_attn.pos_bias_u"] = np.asarray(a["pos_bias_u"])
-        sd[f"{name}.self_attn.pos_bias_v"] = np.asarray(a["pos_bias_v"])
-        ln(f"{name}.norm_mha", p["norm_mha"])
-        lin(f"{name}.feed_forward.w_1", p["ff"]["w1"])
-        lin(f"{name}.feed_forward.w_2", p["ff"]["w2"])
-        ln(f"{name}.norm_ff", p["norm_ff"])
-        if "ff_macaron" in p:
-            lin(f"{name}.feed_forward_macaron.w_1", p["ff_macaron"]["w1"])
-            lin(f"{name}.feed_forward_macaron.w_2", p["ff_macaron"]["w2"])
-            ln(f"{name}.norm_ff_macaron", p["norm_ff_macaron"])
-        if "conv" in p:
-            c = f"{name}.conv_module"
-            lin(f"{c}.pointwise_conv1", p["conv"]["pw1"], conv1x1=True)
-            sd[f"{c}.depthwise_conv.weight"] = np.asarray(p["conv"]["dw"]["w"]).T[:, None, :]
-            sd[f"{c}.depthwise_conv.bias"] = np.asarray(p["conv"]["dw"]["b"])
-            n = p["conv"]["norm"]
-            if "mean" in n:
-                for src, dst in (("gamma", "weight"), ("beta", "bias"), ("mean", "running_mean"),
-                                 ("var", "running_var")):
-                    sd[f"{c}.norm.{dst}"] = np.asarray(n[src])
-                sd[f"{c}.norm.num_batches_tracked"] = np.array(0)
-            else:
-                ln(f"{c}.norm", n)
-            lin(f"{c}.pointwise_conv2", p["conv"]["pw2"], conv1x1=True)
-            ln(f"{name}.norm_conv", p["norm_conv"])
-            ln(f"{name}.norm_final", p["norm_final"])
-
-    sd["input_embedding.weight"] = np.asarray(tree["input_embedding"]["w"])
-    lin("encoder.embed.out.0", tree["embed"]["linear"])
-    ln("encoder.embed.out.1", tree["embed"]["norm"])
-    conv("encoder.pre_lookahead_layer.conv1", tree["pre_lookahead"]["conv1"])
-    conv("encoder.pre_lookahead_layer.conv2", tree["pre_lookahead"]["conv2"])
-    for i, p in enumerate(tree["encoders"]):
-        layer(f"encoder.encoders.{i}", p)
-    conv("encoder.up_layer.conv", tree["up_conv"])
-    lin("encoder.up_embed.out.0", tree["up_embed"]["linear"])
-    ln("encoder.up_embed.out.1", tree["up_embed"]["norm"])
-    for i, p in enumerate(tree["up_encoders"]):
-        layer(f"encoder.up_encoders.{i}", p)
-    ln("encoder.after_norm", tree["after_norm"])
-    lin("encoder_proj", tree["encoder_proj"])
-    return sd
-
-
 @pytest.mark.parametrize("opts", ["live", "macaron+conv_bn"])
 def test_convert_flow_encoder_matches_jax_and_audits(opts):
     from jyutvoice_tpu.weights import torch_convert as jtc
@@ -441,7 +375,7 @@ def test_convert_flow_encoder_matches_jax_and_audits(opts):
 
     jcfg, tree, _ = _flow_pair(FE_OPTIONS[opts])
     pcfg = dataclasses.replace(PFE, **FE_OPTIONS[opts])
-    sd = _flow_encoder_sd(tree, jcfg)
+    sd = flow_encoder_state(tree)
     got, report = audit_convert(tc.convert_flow_encoder, sd, pcfg)
     assert report.ok and len(report.consumed) + len(report.allowed) == len(sd)
     _assert_same_tree(got, _np(jtc.convert_flow_encoder(sd, jcfg)))
@@ -704,41 +638,6 @@ def test_cloned_request_matches_jax(trees, clone_setup):
     assert np.isfinite(out.wav).all() and out.wav.shape == (out.mel_frames * 480,)
 
 
-def _hift_sd(tree, cfg):
-    """The reference's HiFT state_dict names for a JAX-layout tree (the
-    inverse of `convert_hift`, plain weights instead of weight norm)."""
-    sd = {}
-
-    def conv(name, p, transpose=False):
-        w = np.asarray(p["w"])
-        sd[f"{name}.weight"] = w.transpose(1, 2, 0) if transpose else w.transpose(2, 1, 0)
-        sd[f"{name}.bias"] = np.asarray(p["b"])
-
-    def resblock(name, p):
-        for j in range(len(p["convs1"])):
-            conv(f"{name}.convs1.{j}", p["convs1"][j])
-            conv(f"{name}.convs2.{j}", p["convs2"][j])
-            sd[f"{name}.activations1.{j}.alpha"] = np.asarray(p["alphas1"][j])
-            sd[f"{name}.activations2.{j}.alpha"] = np.asarray(p["alphas2"][j])
-
-    for i, c in enumerate(tree["f0_predictor"]["convs"]):
-        conv(f"f0_predictor.condnet.{2 * i}", c)
-    for name, p in (("f0_predictor.classifier", tree["f0_predictor"]["classifier"]),
-                    ("m_source.l_linear", tree["m_source"]["l_linear"])):
-        sd[f"{name}.weight"], sd[f"{name}.bias"] = np.asarray(p["w"]).T, np.asarray(p["b"])
-    conv("conv_pre", tree["conv_pre"])
-    for i, p in enumerate(tree["ups"]):
-        conv(f"ups.{i}", p, transpose=True)
-    for i, p in enumerate(tree["source_downs"]):
-        conv(f"source_downs.{i}", p["conv"])
-    for i, p in enumerate(tree["source_resblocks"]):
-        resblock(f"source_resblocks.{i}", p)
-    for i, p in enumerate(tree["resblocks"]):
-        resblock(f"resblocks.{i}", p)
-    conv("conv_post", tree["conv_post"])
-    return sd
-
-
 def _write_wav(path, audio, sr):
     import wave
 
@@ -769,9 +668,9 @@ def test_infer_cli_ref_audio_with_torch_checkpoints(tmp_path, trees, clone_setup
                                                 ("wav", "ref.wav"), ("out", "out.wav"))}
     save_torch_checkpoint(paths["tts"], tt)
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in _hift_sd(th, cfg.hift).items()}, paths["hift"])
+                for k, v in hift_state(th).items()}, paths["hift"])
     torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in _flow_encoder_sd(fe, JFE).items()}, paths["fe"])
+                for k, v in flow_encoder_state(fe).items()}, paths["fe"])
     torch.save(_s3_standin(3).state_dict(), paths["tok"])
     torch.manual_seed(4)
     _export_onnx(CAMPPlus(feat_dim=80, embedding_size=192).eval(),

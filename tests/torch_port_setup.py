@@ -1,7 +1,10 @@
 """Shared set-up of the port's parity tests: one small configuration built in
-both packages, and the JAX package's random parameter trees for it."""
+both packages, the JAX package's random parameter trees for it, and a
+fixture that runs a module's torch work on one thread."""
 
 import jax
+import pytest
+import torch
 
 from jyutvoice_tpu import config as jax_config
 from jyutvoice_tpu_torch import config as port_config
@@ -33,3 +36,15 @@ def jax_trees(cfg=JAX_CFG, seed=0):
         init_tts(jax.random.PRNGKey(seed), cfg.tts),
         init_hift(jax.random.PRNGKey(seed + 1), cfg.hift),
     )
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one thread for the module, restored after. Tests made of
+    many small ops (training steps, a few Euler steps at small widths) run
+    many times slower when the suite's parallel workers each spread every
+    op over all cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
