@@ -160,11 +160,36 @@ Phases, each printing its own lines; any failure exits non-zero:
      backward (4, 5, the preparation) on the first fine-tune step's first
      attention call and the gradient that reached it, each against its
      plain version and timed as in phases 6e and 8.
+  11. the last single-device modules at full width (seeded random trees):
+     11a, the int8 estimator: the seed-0 tree quantized with the port's
+     quantize_estimator in an int8 Synthesizer beside the f32 one, a
+     512-bucket and a 15000-bucket request in turns (cold, then 3 and 2 warm
+     calls each), 560 kernel-1 and 2 kernel-2 launches per request, mel /
+     vocoder / total ms (medians of the warm calls), the int8-vs-f32 mel
+     deviation (mean |diff| / mean |f32| < 0.1, the JAX test's bar); one
+     full-width QuantLinear on the 512 request's own input against its CPU
+     computation (int8 activations and int32 products equal, output rtol
+     1e-6), timed beside torch._int_mm and the f32 linear; the int8
+     request at 2 steps against the CPU port's (mel MAE < 1e-2);
+     synthesize_batch of 3 and a ServingEngine group of 3 on the int8
+     synthesizer against its direct requests; kernels 1 and 2 on the inputs
+     the int8 path handed them, as in phase 6g;
+     11b, Synthesizer.warmup_long (text buckets 1024 and 8192, mel sizes
+     2048, 4096 and 12288, 10 steps, PCM16) with exact attention (560
+     kernel-3 launches per solve) and auto (banded), and a prompted exact job
+     (t_total 2560); each job's launches and synchronised ms; the count
+     against the JAX formula; synthesize_long, exact, first and second at
+     about 12000 frames (warmed) and 8000 frames (not warmed);
+     11c, the host MAS: mas.cpp built with g++ and loaded (the numpy fallback
+     must not run), on the MAS inputs of phase 9's steps (B=2 at the 2048
+     bucket, B=16 at mel 512) bit-equal to the device maximum_path, both
+     timed, the host's with its copies to and from the card.
 Launch counts are zeroed before and read after each request of phases 6,
 6b and 7, each streamed chunk and multi-session tick of phase 6d, each
 engine group, lane run and HTTP block of phase 6f, each training step of
-phase 9, and the verify call, each training step, the validation pass and
-the validation sample of phase 10. The line before the last is a JSON
+phase 9, the verify call, each training step, the validation pass and the
+validation sample of phase 10, and each request, batch, engine group and
+warmup_long job of phase 11. The line before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
 available.
@@ -744,9 +769,11 @@ def check_kernel3_peaks(label, peaks):
         fail(f"{label}: an input of kernel 3 is beyond fp16's range")
 
 
-def phase_train():
+def phase_train(mas_inputs=None):
     """The training path at full width: 8 steps at the 2048-frame bucket
-    (kernels 3, 4, 5), then 3 steps at the short shape ("plain")."""
+    (kernels 3, 4, 5), then 3 steps at the short shape ("plain"). With a
+    dict `mas_inputs`, the first MAS call at each shape leaves its inputs
+    (log-prior and mask, on the card) there, for phase 11c."""
     import numpy as np
     import torch
 
@@ -771,6 +798,8 @@ def phase_train():
     mas_events = []
 
     def timed_mas(*a, **k):
+        if mas_inputs is not None and tuple(a[0].shape) not in mas_inputs:
+            mas_inputs[tuple(a[0].shape)] = tuple(t.detach().clone() for t in a[:2])
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         ev[0].record()
         out = real_mas(*a, **k)
@@ -1787,21 +1816,22 @@ def serving_kernel_inputs(into, label):
         attention.flash_attention, hift.resblock_stage_prepared = real_flash, real_stage
 
 
-def phase_serve_path_kernels(synth, captured, smi):
-    """Kernels 1 and 2 on the inputs that phase 6f's engine groups handed
-    them (`serving_kernel_inputs`): the first call at each shape, with the
-    lengths, padding rows, prompt rows and stage weights the batch path
-    made. Kernel 1 against its plain version on the valid rows (a row that
-    repeats an earlier one must equal it bit for bit), kernel 2 on every
-    row, timed as in phase 6e. Returns (kernel 1's max |err|, kernel 2's,
-    kernel 1's times, kernel 2's pair times), keyed by batch and bucket."""
+def phase_serve_path_kernels(synth, captured, smi, phase="6f"):
+    """Kernels 1 and 2 on the inputs that phase 6f's engine groups (or
+    another phase's requests) handed them (`serving_kernel_inputs`): the
+    first call at each shape, with the lengths, padding rows, prompt rows and
+    stage weights the batch path made. Kernel 1 against its plain version on
+    the valid rows (a row that repeats an earlier one must equal it bit for
+    bit), kernel 2 on every row, timed as in phase 6e. Returns (kernel 1's
+    max |err|, kernel 2's, kernel 1's times, kernel 2's pair times), keyed by
+    batch and bucket."""
     import torch
 
     torch.cuda.synchronize()
     flash_keys = sorted(k for k in captured if k[0] == "flash_attention")
     stage_keys = sorted(k for k in captured if k[0] == "resblock_stage")
     if not flash_keys or not stage_keys:
-        fail(f"phase 6f handed no input to kernel 1 or kernel 2: {sorted(captured)}")
+        fail(f"phase {phase} handed no input to kernel 1 or kernel 2: {sorted(captured)}")
     worst, flash = 0.0, {}
     for key in flash_keys:
         case = captured.pop(key)
@@ -1822,7 +1852,7 @@ def phase_serve_path_kernels(synth, captured, smi):
         _add_stage(stage, name, times)
         del case
         torch.cuda.empty_cache()
-    _log_pairs(stage, " (phase 6f's inputs)", smi)
+    _log_pairs(stage, f" (phase {phase}'s inputs)", smi)
     return worst, stage_worst, flash, stage
 
 
@@ -2890,6 +2920,370 @@ def phase_finetune_kernels(captured, hift_tree, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the int8 estimator, warmup_long, the host MAS
+# ---------------------------------------------------------------------------
+
+INT8_TO_F32_REL = 0.1  # int8 against f32 mel: mean |diff| / mean |f32| (the JAX test's bar)
+
+
+def _quant_linear_case(lin, x, smi):
+    """One full-width QuantLinear on the card against its plain computation
+    on the CPU: the int8 activations and the int32 products equal, the
+    output within rtol 1e-6. Times the whole int8 linear, its product alone
+    (torch._int_mm) and the f32 linear of the dequantized weight, each a
+    median of CUDA-event loops. Returns the times."""
+    import torch
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch.nn import quant
+
+    x2 = x.reshape(-1, x.shape[-1])
+    x_q, sx = quant.quantize_rows(x2)
+    acc = quant.int8_matmul(x_q, lin.w_q.t())
+    out = lin(x)
+    w_q, scale, bias = (t.cpu() for t in (lin.w_q, lin.scale, lin.bias))
+    r_q, r_sx = quant.quantize_rows(x2.cpu())
+    r_acc = quant.int8_matmul(r_q, w_q.t())
+    ref = quant.linear_q({"w_q": w_q.t(), "scale": scale, "b": bias}, x.cpu())
+    out_c = out.cpu()
+    rel = float(((out_c - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+    ok = (torch.equal(x_q.cpu(), r_q) and torch.equal(sx.cpu(), r_sx)
+          and torch.equal(acc.cpu(), r_acc) and bool(torch.allclose(out_c, ref, rtol=1e-6, atol=0)))
+    m, k = x2.shape
+    n = lin.w_q.shape[0]
+    w_f32 = (lin.w_q.float() * lin.scale[:, None]).contiguous()
+    w_t = lin.w_q.t()
+    ms = cuda_time_ms(lambda: lin(x), 50)
+    mm_ms = cuda_time_ms(lambda: torch._int_mm(x_q, w_t), 50)
+    f32_ms = cuda_time_ms(lambda: F.linear(x, w_f32, lin.bias), 50)
+    log(f"int8 QuantLinear {k}->{n} on {m} rows (the 512 request's decoder.mid.0.blocks.0.ff_in "
+        f"input): x_q equal {torch.equal(x_q.cpu(), r_q)}, int32 products equal "
+        f"{torch.equal(acc.cpu(), r_acc)}, output max rel err {rel:.3e}; linear ms {ms:.4f}, "
+        f"torch._int_mm ms {mm_ms:.4f}, f32 linear (TF32 off) ms {f32_ms:.4f} ({smi})")
+    if not ok:
+        fail("the int8 linear on the card does not match its CPU computation")
+    return dict(ms=ms, int_mm_ms=mm_ms, f32_ms=f32_ms)
+
+
+def phase_int8(params_tts, params_hift, scale, smi):
+    """11a, the int8 estimator at full width: the seed-0 tree quantized with
+    the port's quantize_estimator in an int8 Synthesizer on the card beside
+    the f32 one. A 512-bucket and a 15000-bucket request in turns (f32,
+    int8, then warm calls alternating), each with 560 kernel-1 and 2
+    kernel-2 launches; mel / vocoder (host clock fenced by synchronize) and
+    total (CUDA events) medians of the warm calls; the int8-vs-f32 mel
+    deviation against INT8_TO_F32_REL. One full-width QuantLinear on the
+    512 request's own input against its CPU computation. The int8 request
+    at 2 steps against the CPU port's int8 request (mel MAE < 1e-2).
+    synthesize_batch and a ServingEngine group on the int8 synthesizer
+    against its direct requests. Kernels 1 and 2 on the inputs the int8
+    path handed them. Returns (launches, kernel 1's and 2's errors and
+    times)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.nn.quant import QuantLinear, quantize_estimator, quantize_rows
+    from jyutvoice_tpu_torch.pipeline import buckets
+    from jyutvoice_tpu_torch.pipeline.server import ServingEngine
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+
+    cfg = JyutVoiceConfig()
+    est = cfg.tts.cfm.estimator
+    per_step = (est.num_mid_blocks + 2) * est.n_blocks
+    qtree = {**params_tts, "decoder": quantize_estimator(params_tts["decoder"])}
+    synths = {"f32": Synthesizer(cfg, params_tts, params_hift, device="cuda"),
+              "int8": Synthesizer(cfg, qtree, params_hift, device="cuda")}
+    int8 = synths["int8"]
+    n_q = sum(isinstance(m, QuantLinear) for m in int8.tts.modules())
+    want_q = 6 * (est.num_mid_blocks + 2) * est.n_blocks
+    log(f"int8: {n_q} QuantLinear modules in the int8 decoder (want {want_q}), "
+        f"{sum(isinstance(m, QuantLinear) for m in synths['f32'].tts.modules())} in the f32 one")
+    if n_q != want_q or any(isinstance(m, QuantLinear) for m in synths["f32"].tts.modules()):
+        fail("the int8 tree did not load as QuantLinear modules where the estimator takes them")
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    yue = dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3")
+    captured, lin_in = {}, {}
+    lin = int8.tts.decoder.mid[0].blocks[0].ff_in
+
+    def keep_input(mod, args):
+        lin_in.setdefault("x", args[0].detach().clone())
+
+    hook = lin.register_forward_pre_hook(keep_input)
+
+    def request(name, label, bucket, capture, **kw):
+        kernels.reset_launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with (serving_kernel_inputs(captured, label) if capture else contextlib.nullcontext()):
+            res = synths[name].synthesize(**kw)
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want = dict(zero, flash_attention=kw["n_timesteps"] * per_step, resblock_stage=2)
+        got_bucket = buckets.pick_bucket(res.mel_frames, buckets.MEL_BUCKETS)
+        log(f"int8 phase {name} {label}: mel_frames={res.mel_frames} bucket={got_bucket} "
+            f"mel_ms={res.timings['mel'] * 1e3:.1f} vocoder_ms={res.timings['vocoder'] * 1e3:.1f} "
+            f"total_event_ms={start.elapsed_time(end):.1f} launches={launches} ({smi})")
+        if (launches != want or not np.isfinite(res.mel).all()
+                or (bucket is not None and got_bucket != bucket)):
+            fail(f"int8 phase {name} {label} failed its checks (want launches {want}, "
+                 f"bucket {bucket})")
+        if name == "int8":
+            for k in counts:
+                counts[k] += launches[k]
+        return res, start.elapsed_time(end)
+
+    times = {}
+    cases = [("512", 512, dict(yue, length_scale=scale), 3),
+             ("15000", 15000, dict(yue, length_scale=scale_for(int8, 13000, **yue)), 2)]
+    for case, bucket, kw, warm in cases:
+        order = ["f32", "int8"] + ["f32", "int8", "int8", "f32", "f32", "int8"][: 2 * warm]
+        runs = {"f32": [], "int8": []}
+        for i, name in enumerate(order):
+            cold = i < 2
+            runs[name].append(request(
+                name, f"{case} bucket ({'cold' if cold else 'warm'})", bucket,
+                capture=(case == "512" and name == "int8" and cold), n_timesteps=10, **kw))
+        f_mel, q_mel = runs["f32"][-1][0].mel, runs["int8"][-1][0].mel
+        rel = float(np.abs(q_mel - f_mel).mean() / np.abs(f_mel).mean()) \
+            if q_mel.shape == f_mel.shape else float("inf")
+        for name in runs:
+            warm_runs = runs[name][1:]
+            times[f"{case}_{name}"] = dict(
+                mel_ms=statistics.median(r.timings["mel"] * 1e3 for r, _ in warm_runs),
+                vocoder_ms=statistics.median(r.timings["vocoder"] * 1e3 for r, _ in warm_runs),
+                total_ms=statistics.median(ms for _, ms in warm_runs),
+                cold_total_ms=runs[name][0][1])
+        log(f"int8 phase {case} bucket, median of {warm} warm calls: f32 {json.dumps(times[f'{case}_f32'])}"
+            f"; int8 {json.dumps(times[f'{case}_int8'])}; int8 vs f32 mel: mean |diff| / mean "
+            f"|f32| = {rel:.4e} (bar {INT8_TO_F32_REL}), mel MAE "
+            f"{float(np.abs(q_mel - f_mel).mean()):.4e} ({smi})")
+        if not rel < INT8_TO_F32_REL:
+            fail(f"the int8 mel is too far from the f32 one at the {case} bucket")
+    hook.remove()
+    lin_times = _quant_linear_case(lin, lin_in.pop("x"), smi)
+
+    # 2 steps against the CPU port's int8 request; every int8 linear of the
+    # card's request on its own first input against its CPU computation
+    cpu = Synthesizer(cfg, qtree, params_hift, device="cpu")
+    kw = dict(text="佢", lang="yue", phone="keoi5", n_timesteps=2)
+    t = time.perf_counter()
+    ref = cpu.synthesize(**kw)
+    cpu_s = time.perf_counter() - t
+    firsts = {}
+
+    def keep_first(mod, args):
+        firsts.setdefault(mod, args[0].detach().clone())
+
+    hooks = [m.register_forward_pre_hook(keep_first)
+             for m in int8.tts.modules() if isinstance(m, QuantLinear)]
+    try:
+        out, _ = request("int8", "2 steps (against the CPU)", None, False, **kw)
+    finally:
+        for h in hooks:
+            h.remove()
+    mae = float(np.abs(out.mel - ref.mel).mean()) if out.mel.shape == ref.mel.shape else float("inf")
+    bad, worst = [], 0.0
+    for name, mod in int8.tts.named_modules():
+        if mod not in firsts:
+            continue
+        x = firsts.pop(mod)
+        cpu_mod = cpu.tts.get_submodule(name)
+        with torch.inference_mode():
+            got, want = mod(x).cpu(), cpu_mod(x.cpu())
+        x_q, _ = quantize_rows(x.reshape(-1, x.shape[-1]))
+        r_q, _ = quantize_rows(x.cpu().reshape(-1, x.shape[-1]))
+        worst = max(worst, float(((got - want).abs() / want.abs().clamp_min(1e-30)).max()))
+        if not (torch.equal(x_q.cpu(), r_q) and torch.allclose(got, want, rtol=1e-6, atol=0)):
+            bad.append(name)
+    log(f"int8 reference (CPU, plain versions) vs card at 2 steps: mel_frames "
+        f"{out.mel_frames}/{ref.mel_frames} mel_mae={mae:.3e} (CPU {cpu_s:.1f} s); each int8 "
+        f"linear on the card's own input against the CPU: {want_q - len(bad)} of {want_q} with "
+        f"equal int8 activations and outputs within rtol 1e-6 (max rel err {worst:.3e})")
+    if out.mel_frames != ref.mel_frames or not mae < 1e-2 or bad or firsts:
+        fail(f"the card's int8 output does not agree with the CPU's int8 output "
+             f"(linears off: {bad[:5]})")
+    del cpu
+
+    # synthesize_batch and the engine on the int8 synthesizer
+    items = [dict(it) for it in SERVE_ITEMS[:3]]
+    direct = [int8.synthesize(**it, n_timesteps=10, length_scale=scale, pcm16=True)
+              for it in items]
+    kernels.reset_launch_counts()
+    batch = int8.synthesize_batch(items, n_timesteps=10, length_scale=scale, pcm16=True)
+    launches = dict(kernels.LAUNCHES)
+    maes = [float(np.abs(b.mel - d.mel).mean()) for b, d in zip(batch, direct)]
+    log(f"int8 synthesize_batch of 3 (b_pad 4): frames {[b.mel_frames for b in batch]}, mel MAE "
+        f"against direct synthesize max {max(maes):.3e}, launches {launches}")
+    if (launches != dict(zero, flash_attention=10 * per_step, resblock_stage=2)
+            or [b.mel_frames for b in batch] != [d.mel_frames for d in direct]
+            or not max(maes) < 1e-2):
+        fail("int8 synthesize_batch failed its checks")
+    for k in counts:
+        counts[k] += launches[k]
+    with ServingEngine(int8, max_batch=8, max_wait_ms=200.0, n_timesteps=10,
+                       length_scale=scale, pcm16=True, return_mel=True) as engine:
+        launches, _, _ = _serve_group(engine, items, direct, "int8, 3 requests, b_pad 4", 1, smi,
+                                      captured)
+    for k in counts:
+        counts[k] += launches[k]
+    del synths, direct, batch
+    torch.cuda.empty_cache()
+    kernel_cases = phase_serve_path_kernels(int8, captured, smi, phase="11a")
+    del int8, captured
+    torch.cuda.empty_cache()
+    log(f"int8 phase times: {json.dumps(times)}, QuantLinear {json.dumps(lin_times)} ({smi})")
+    return counts, kernel_cases
+
+
+def phase_warmup_long(params_tts, params_hift, smi):
+    """11b, `Synthesizer.warmup_long` at full width, 10 steps, PCM16: text
+    buckets 1024 and 8192 and mel sizes 2048, 4096 and 12288 with exact
+    attention (560 kernel-3 launches per solve) and auto (banded), then a
+    prompted exact job at 2048 (t_total 2560); every job's launches read
+    and its seconds taken (synchronised) by the log callback; the count
+    against the JAX formula. Then synthesize_long, exact, first and second
+    at about 12000 frames (12288, warmed) and 8000 frames (8192, not
+    warmed). Returns the launches."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+
+    cfg = JyutVoiceConfig()
+    est = cfg.tts.cfm.estimator
+    per_solve = 10 * (est.num_mid_blocks + 2) * est.n_blocks
+    synth = Synthesizer(cfg, params_tts, params_hift, device="cuda")
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    zero = {k: 0 for k in kernels.LAUNCHES}
+    table = dict(mel_sizes=(2048, 4096, 12288), text_buckets=(1024, 8192))
+    runs = [
+        ("exact", dict(table, attention="exact"),
+         [0, 0] + [per_solve] * 3),
+        ("auto", dict(table, attention="auto"), [0, 0, 0, 0, 0]),
+        ("exact, prompted", dict(mel_sizes=(2048,), text_buckets=(), with_prompt=True,
+                                 attention="exact"), [per_solve, per_solve]),
+    ]
+    for label, kw, want_k3 in runs:
+        seen = []
+        clock = [time.perf_counter()]
+
+        def log_fn(msg):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            seen.append((msg, dict(kernels.LAUNCHES), (now - clock[0]) * 1e3))
+            clock[0] = now
+            kernels.reset_launch_counts()
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = synth.warmup_long(n_timesteps=(10,), pcm16=True, log_fn=log_fn, **kw)
+        wall = time.perf_counter() - t0
+        want_n = len(kw["text_buckets"]) + len(kw["mel_sizes"]) * (1 + kw.get("with_prompt", 0))
+        ok = n == want_n == len(seen)
+        for (msg, launches, ms), k3 in zip(seen, want_k3):
+            mel_job = msg.startswith("warmup_long: mel")
+            want = dict(zero, flash_stock=k3, resblock_stage=2 if mel_job else 0)
+            ok &= launches == want
+            for k in counts:
+                counts[k] += launches[k]
+            log(f"warmup_long {label}: {msg} in {ms:.1f} ms, launches {launches}")
+        log(f"warmup_long {label}: {n} shapes (JAX count {want_n}) in {wall:.1f} s ({smi})")
+        if not ok:
+            fail(f"warmup_long {label} failed its checks (count {n}, want {want_n}; "
+                 f"kernel 3 per job {want_k3}, kernel 2 twice per mel job)")
+
+    yue = dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3")
+    for frames, note in ((12000, "warmed"), (8000, "not warmed")):
+        kw = dict(yue, attention="exact", length_scale=scale_for(synth, frames, **yue))
+        first = []
+        for which in ("first", "second"):
+            kernels.reset_launch_counts()
+            res = synth.synthesize_long(n_timesteps=10, pcm16=True, **kw)
+            launches = dict(kernels.LAUNCHES)
+            first.append(res.timings["total"] * 1e3)
+            t = {k: round(v * 1e3, 1) for k, v in res.timings.items() if k != "audio_seconds"}
+            log(f"synthesize_long after warmup_long, exact, {res.mel_frames} frames ({note}), "
+                f"{which}: ms {json.dumps(t)}, launches {launches} ({smi})")
+            if (launches != dict(zero, flash_stock=per_solve, resblock_stage=2)
+                    or not np.isfinite(res.wav).all()):
+                fail(f"synthesize_long after warmup_long ({note}, {which}) failed its checks")
+            for k in counts:
+                counts[k] += launches[k]
+        log(f"synthesize_long at {frames} frames ({note}): first {first[0]:.1f} ms, second "
+            f"{first[1]:.1f} ms, first - second {first[0] - first[1]:.1f} ms ({smi})")
+    del synth
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_host_mas(mas_inputs, smi):
+    """11c, the host MAS: mas.cpp built with g++ into _build/ and loaded (the
+    numpy fallback must not run), then on each MAS input phase 9's training
+    steps made (B=2 at the 2048 bucket, B=16 at mel 512) the host path
+    (device-to-host copy, maximum_path_host, the path back to the card)
+    against the device wavefront maximum_path, bit for bit, each timed
+    (median of 3 after one warm call; the device's by CUDA events, the
+    host's by the host clock around synchronised copies)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import align
+
+    t0 = time.perf_counter()
+    lib = align._get_lib()
+    log(f"host MAS: native library {align._lib_path()} loaded={lib is not None} "
+        f"({time.perf_counter() - t0:.1f} s with the build)")
+    if lib is None:
+        fail("the native host MAS did not build or load")
+    if not mas_inputs:
+        fail("phase 9 handed no input to MAS")
+
+    def no_fallback(*a):
+        raise RuntimeError("the numpy fallback ran")
+
+    real_numpy = align._maximum_path_numpy
+    align._maximum_path_numpy = no_fallback
+    try:
+        for shape, (value, mask) in sorted(mas_inputs.items()):
+            device = align.maximum_path(value, mask)
+            host = align.maximum_path_host(value.cpu().numpy(), mask.cpu().numpy())
+            same = torch.equal(device.cpu(), torch.from_numpy(host))
+            _, dev_ms = _event_ms(lambda: align.maximum_path(value, mask))
+            parts = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v, m = value.cpu().numpy(), mask.cpu().numpy()
+                t1 = time.perf_counter()
+                p = align.maximum_path_host(v, m)
+                t2 = time.perf_counter()
+                torch.from_numpy(p).to(value.device)
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3, (t3 - t0) * 1e3))
+            d2h, mas, h2d, total = (statistics.median(p[i] for p in parts[1:]) for i in range(4))
+            lens = (mask[:, :, 0].sum(1).int().tolist(), mask[:, 0, :].sum(1).int().tolist())
+            log(f"host MAS {shape} (text lengths {lens[0]}, mel lengths {lens[1]}): equal to the "
+                f"device MAS {same} ({int(np.asarray(host).sum())} path cells); device "
+                f"(maximum_path, CUDA events) {dev_ms:.2f} ms; host {total:.2f} ms = copy to "
+                f"the host {d2h:.2f} + mas.cpp {mas:.2f} + copy back {h2d:.2f} ({smi})")
+            if not same:
+                fail(f"the host MAS differs from the device MAS at {shape}")
+    finally:
+        align._maximum_path_numpy = real_numpy
+
+
 PHASE_S = {}  # phase name -> wall seconds, printed before the result
 
 
@@ -2968,7 +3362,8 @@ def main():
     timed("7 reference", phase_long_reference, synth, params_tts, params_hift)
     del synth
     torch.cuda.empty_cache()
-    train_counts = timed("9 train", phase_train)
+    mas_inputs = {}
+    train_counts = timed("9 train", phase_train, mas_inputs)
     timed("9 reference", phase_train_reference)
     counts = {k: counts.get(k, 0) + long_counts.get(k, 0) + train_counts[k] for k in train_counts}
     torch.cuda.empty_cache()
@@ -2989,6 +3384,17 @@ def main():
     for kernel, key in ((stock, "fwd"), (bwd["dkv"], "dkv"), (bwd["dq"], "dq"),
                         (bwd["prep"], "prep")):
         kernel.update({f"finetune_{k}": v for k, v in ft_kernel[key].items()})
+    torch.cuda.empty_cache()
+    int8_counts, (int8_err, int8_stage_err, int8_flash, int8_stage) = timed(
+        "11a int8", phase_int8, params_tts, params_hift, scale, smi)
+    wl_counts = timed("11b warmup_long", phase_warmup_long, params_tts, params_hift, smi)
+    timed("11c host MAS", phase_host_mas, mas_inputs, smi)
+    del mas_inputs
+    counts = {k: counts[k] + int8_counts[k] + wl_counts[k] for k in counts}
+    flash["max_abs_err"] = max(flash["max_abs_err"], int8_err)
+    stage["max_abs_err"] = max(stage["max_abs_err"], int8_stage_err)
+    for kernel, cases in ((flash, int8_flash), (stage, int8_stage)):
+        kernel.update({f"int8_{case}_{k}": v for case, d in cases.items() for k, v in d.items()})
 
     line = {"kernels": [
         dict(name="flash_attention", route="cuda",

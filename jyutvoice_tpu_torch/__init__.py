@@ -9,8 +9,9 @@ The two kernels the JAX package wrote in Pallas are hand-written CUDA C++ for
 sm_90a here (`csrc/`), built with nvcc at first use:
   * `nn/flash_attention.py` — the CFM estimator's attention;
   * `nn/resblock_stage.py` — one fused HiFT ResBlock stage (C <= 128).
-Each keeps a plain PyTorch version that CPU tensors take. The package imports
-neither JAX nor the JAX package.
+Each keeps a plain PyTorch version that CPU tensors take. An int8 estimator
+(`nn/quant.py`) loads wherever the parameter tree was quantized. The package
+imports neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -62,9 +62,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup-mel", help="comma-separated mel buckets to warm "
                     "(default: 128..1024)")
     ap.add_argument(
+        "--warmup-long", action="store_true",
+        help="before serving, also drive the long-form shapes of synthesize_long once "
+        "(Synthesizer.warmup_long's defaults: text buckets 1024-8192, every 512-aligned "
+        "mel length 2048-12288 and the windowed vocoder) under --long-attention")
+    ap.add_argument(
         "--long-attention", choices=("auto", "banded", "exact"), default="auto",
         help="long-form attention of the requests served by synthesize_long: 'auto' "
         "(banded past the config's threshold), 'banded' or 'exact'")
+    ap.add_argument(
+        "--warmup-long-prompts", action="store_true",
+        help="with --warmup-long: also drive the cloning shapes (the solve with the "
+        "512-frame prompt head per mel size); doubles the long-form warm-up")
     ap.add_argument("--verbose", action="store_true")
     return ap
 
@@ -123,6 +132,17 @@ def main(argv=None, cfg=None) -> None:
             log_fn=lambda m: log.info("%s", m),
         )
         log.info("warmup: %d shapes in %.1f s", n, time.perf_counter() - t0)
+    if args.warmup_long:
+        t0 = time.perf_counter()
+        n = synth.warmup_long(
+            n_timesteps=(args.n_timesteps,),
+            pcm16=True,  # the engine serves PCM16
+            log_fn=lambda m: log.info("%s", m),
+            with_prompt=args.warmup_long_prompts,
+            # the engine's long route runs synthesize_long with --long-attention
+            attention=args.long_attention,
+        )
+        log.info("warmup-long: %d shapes in %.1f s", n, time.perf_counter() - t0)
     server = TTSServer(
         synth, host=args.host, port=args.port, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, n_timesteps=args.n_timesteps,

@@ -172,6 +172,8 @@ class CausalResnet(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    QUANTIZABLE = ("ff_in", "ff_out")  # int8 where the tree holds w_q (nn/quant.py)
+
     def __init__(self, dim: int, n_heads: int, head_dim: int, ff_mult: int = 4):
         super().__init__()
         self.norm1 = core.LayerNorm(dim)

@@ -181,7 +181,12 @@ class PlainMHA(nn.Module):
     `banded_mha` and "plain" is `sdpa` with an additive mask bias, the
     counterpart of the JAX package's XLA `plain_mha`, which training takes
     where the stock-flash gate does not fire. The kernels run on CUDA
-    tensors and their plain versions on CPU tensors."""
+    tensors and their plain versions on CPU tensors.
+
+    A tree that holds `w_q` for q, k, v or o (`nn/quant.py::
+    quantize_estimator`) loads that projection as a `QuantLinear`."""
+
+    QUANTIZABLE = ("q", "k", "v", "o")
 
     def __init__(self, query_dim: int, n_heads: int, head_dim: int):
         super().__init__()

@@ -713,3 +713,73 @@ class Synthesizer:
                             count += 3 if b == 1 else 2
         self._sync()
         return count
+
+    @torch.inference_mode()
+    def warmup_long(
+        self,
+        # the long-form shape table synthesize_long picks: every 512-aligned
+        # mel length >= 2048 up to the 12288 bucket
+        mel_sizes=(2048, 3072, 4096, 6144, 8192, 12288),
+        text_buckets=(1024, 2048, 4096, 8192),
+        n_timesteps=(10,),
+        pcm16: bool = False,
+        log_fn=None,
+        with_prompt: bool = False,
+        attention: str = "auto",
+    ) -> int:
+        """Drive the long-form path (`synthesize_long`) once at each shape
+        before traffic arrives, on zero inputs: the text half that
+        `prepare_stream` runs at each text bucket, then for each mel size
+        and step count the CFM solve at t_total = head + t_mel under the
+        same `attention` routing (banded, kernel 3 or kernel 1 as
+        `attention_route` picks for that length), the strip of the prompt
+        head and the vocoder at t_mel (windowed past its threshold). In
+        eager PyTorch this builds the CUDA kernels at their first use and
+        warms cuDNN's algorithm choice and the caching allocator at those
+        shapes; it compiles and captures nothing.
+
+        mel_sizes are the t_mel that `long_form_shapes` picks (multiples of
+        512 past 1536). with_prompt=True also warms the cloning shapes: the
+        solve with the 512-frame prompt head. attention must be the
+        engine's long_attention, or the served requests take routes that
+        were not warmed. Returns the JAX package's count: 1 per text
+        bucket, 1 per (mel job, steps)."""
+        if attention not in ATTENTION_MODES:
+            raise ValueError(
+                f"unknown long-form attention {attention!r} "
+                "(use 'auto', 'banded' or 'exact')"
+            )
+        dev, count = self.device, 0
+        spk = torch.zeros((1, self.cfg.tts.spk_embed_dim), device=dev)
+        ones = torch.ones((1,), dtype=torch.int64, device=dev)
+        for t_text in text_buckets:
+            x = torch.zeros((1, t_text), dtype=torch.int64, device=dev)
+            self._durations([x] * 5, ones, spk)
+            self.tts.spk_embed_affine_layer(tts_mod.l2_normalize(spk, dim=1))
+            count += 1
+            if log_fn:
+                log_fn(f"warmup_long: text bucket {t_text} ready")
+        p_head = math.lcm(512, long_frame_granule(1)) if with_prompt else 0
+        spks = torch.zeros((1, 80), device=dev)
+        for t_mel in mel_sizes:
+            for t_total, head in [(t_mel, 0)] + ([(p_head + t_mel, p_head)] if p_head else []):
+                mu = torch.zeros((1, t_total, 80), device=dev)
+                mask = torch.ones((1, t_total, 1), device=dev)
+                cond = torch.zeros_like(mu)
+                noise = rand_noise_extended(t_total, device=dev)
+                for steps in n_timesteps:
+                    mel = cfm_forward(
+                        self.tts.decoder, self.cfg.tts.cfm, mu, mask, spks, cond,
+                        n_timesteps=int(steps), rand_noise=noise, attention=attention,
+                    )
+                    if head:
+                        mel = mel[:, head : head + t_mel]
+                    wav, _ = hift_mod.hift_vocode_auto(self.hift, mel)
+                    if pcm16:
+                        to_pcm16(wav)
+                    count += 1
+                    if log_fn:
+                        log_fn(f"warmup_long: mel {t_mel}" + (f" +prompt{head}" if head else "")
+                               + f" x {steps} steps ready")
+        self._sync()
+        return count

@@ -1,41 +1,187 @@
-"""Data-driven English letter-to-sound for OOV words (prediction only).
+"""Data-driven English letter-to-sound for OOV words.
 
-The reference falls back to the neural g2p_en model for words missing from
-CMUdict. The JAX package distills CMUdict into a decision-list LTS instead:
-for every letter and a ladder of left/right context windows, the majority
-phone output; prediction backs off from the widest observed context to the
-bare letter, with dictionary-backed morphology first (`predict_pron`).
+The counterpart of the JAX package's `text/lts.py`: the trainer and the
+prediction, in pure Python. The reference falls back to the neural g2p_en
+model for words missing from CMUdict (reference text/english/g2p.py:244-254).
+g2p_en is not installable here, so this module distills CMUdict itself into a
+compact decision-list LTS:
+
+  1. EM/Viterbi 1-to-n alignment: each letter of a dictionary word emits
+     0..MAX_EMIT ARPAbet phones; emission probabilities re-estimated from
+     Viterbi alignments over a few iterations (classic m2m-aligner shape,
+     simplified to letters-only chunks).
+  2. Decision-list rules: from the aligned corpus, for every letter and a
+     ladder of left/right context windows, keep the majority phone output.
+     Prediction backs off from the widest observed context to the bare
+     letter, with dictionary-backed morphology first (`predict_pron`).
 
 The trained rule table ships with this package (`text/data/lts_model.pkl.gz`,
-a byte-for-byte copy of the JAX package's table, trained there with
-`python -m jyutvoice_tpu.text.lts --train`). english.py loads it at first OOV
-and falls back to the old crude rule map only when neither artifact nor
-dictionary is available.
+a byte-for-byte copy of the JAX package's table). Retrain it with
+`python -m jyutvoice_tpu_torch.text.lts --train` (reads CMUdict through
+`english.get_dict`, `JYUTVOICE_CMUDICT`; `--out` writes elsewhere; ~1 min on
+one core). english.py loads the artifact at first OOV and falls back to the
+old crude rule map only when neither artifact nor dictionary is available.
 """
 
 from __future__ import annotations
 
 import functools
 import gzip
+import math
 import os
 import pickle
-from typing import List, Tuple
+import random
+from collections import Counter, defaultdict
+from typing import Dict, List, Sequence, Tuple
 
 MODEL_PATH = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "data", "lts_model.pkl.gz"
 )
 
+MAX_EMIT = 2  # phones one letter may emit (covers x -> K S)
+# context windows (left, right), widest first — the backoff ladder.
+# English spelling is right-context heavy (magic e, -tion, -ough), so the
+# ladder keeps more right context as it narrows.
+WINDOWS: Tuple[Tuple[int, int], ...] = (
+    (4, 4), (3, 4), (4, 3), (3, 3), (2, 3), (3, 2), (2, 2), (1, 2), (2, 1),
+    (1, 1), (0, 1), (1, 0), (0, 0),
+)
+# minimum observation count for a rule to be kept: singletons at the
+# widest contexts almost never match held-out words but dominate model
+# size, so they are pruned; narrow contexts keep everything
+MIN_COUNT: Dict[int, int] = {0: 2, 1: 2, 2: 2, 3: 2}
 
 _PAD = 4
 _BOUND = "#"
 
 
+def _word_phones(entry: Sequence[Sequence[str]]) -> List[str]:
+    return [p for syl in entry for p in syl]
 
 
+def _viterbi_align(
+    word: str, phones: List[str], logp: Dict[Tuple[str, Tuple[str, ...]], float]
+) -> List[Tuple[str, Tuple[str, ...]]]:
+    """Best alignment of letters to 0..MAX_EMIT-phone chunks."""
+    n, m = len(word), len(phones)
+    NEG = -1e30
+    best = [[NEG] * (m + 1) for _ in range(n + 1)]
+    back = [[None] * (m + 1) for _ in range(n + 1)]
+    best[0][0] = 0.0
+    for i in range(n):
+        letter = word[i]
+        row = best[i]
+        for j in range(m + 1):
+            base = row[j]
+            if base <= NEG / 2:
+                continue
+            for k in range(0, MAX_EMIT + 1):
+                if j + k > m:
+                    break
+                chunk = tuple(phones[j : j + k])
+                s = base + logp.get((letter, chunk), -20.0 if k else -25.0)
+                if s > best[i + 1][j + k]:
+                    best[i + 1][j + k] = s
+                    back[i + 1][j + k] = (j, chunk)
+    if best[n][m] <= NEG / 2:
+        return []
+    out: List[Tuple[str, Tuple[str, ...]]] = []
+    i, j = n, m
+    while i > 0:
+        pj, chunk = back[i][j]
+        out.append((word[i - 1], chunk))
+        i, j = i - 1, pj
+    out.reverse()
+    return out
 
 
+def _init_logp(pairs) -> Dict[Tuple[str, Tuple[str, ...]], float]:
+    """Heuristic seed: favor identity-ish letter/phone pairs so EM starts
+    near the truth (b->B, s->S, vowels->vowel phones)."""
+    logp: Dict[Tuple[str, Tuple[str, ...]], float] = {}
+    vowels = set("aeiouy")
+    for word, phones in pairs:
+        for letter in set(word):
+            for j in range(len(phones)):
+                for k in range(1, MAX_EMIT + 1):
+                    if j + k > len(phones):
+                        break
+                    chunk = tuple(phones[j : j + k])
+                    key = (letter, chunk)
+                    if key in logp:
+                        continue
+                    first = chunk[0].rstrip("0123456789").lower()
+                    score = -8.0
+                    if first.startswith(letter):
+                        score = -2.0
+                    elif letter in vowels and first[0] in "aeiou":
+                        score = -4.0
+                    if k == 2:
+                        score -= 2.0
+                    logp[key] = score
+            logp[(letter, ())] = -9.0
+    return logp
 
 
+def train(
+    entries: Dict[str, List[List[str]]],
+    iterations: int = 3,
+    seed: int = 0,
+    holdout: float = 0.0,
+):
+    """Train the aligner + decision list. Returns (model, heldout_pairs)."""
+    rng = random.Random(seed)
+    pairs = []
+    for word, entry in entries.items():
+        w = word.lower()
+        if not w or not all(c.isalpha() or c == "'" for c in w):
+            continue
+        phones = _word_phones(entry)
+        if not phones or len(phones) > MAX_EMIT * len(w):
+            continue
+        pairs.append((w, phones))
+    rng.shuffle(pairs)
+    n_hold = int(len(pairs) * holdout)
+    heldout, pairs = pairs[:n_hold], pairs[n_hold:]
+
+    logp = _init_logp(pairs)
+    for _ in range(iterations):
+        counts: Counter = Counter()
+        letter_totals: Counter = Counter()
+        for word, phones in pairs:
+            for letter, chunk in _viterbi_align(word, phones, logp):
+                counts[(letter, chunk)] += 1
+                letter_totals[letter] += 1
+        logp = {
+            key: math.log((c + 0.1) / (letter_totals[key[0]] + 10.0))
+            for key, c in counts.items()
+        }
+
+    # decision-list rules from the final alignments
+    rule_counts = [defaultdict(Counter) for _ in WINDOWS]
+    for word, phones in pairs:
+        aligned = _viterbi_align(word, phones, logp)
+        if len(aligned) != len(word):
+            continue
+        padded = _BOUND * _PAD + word + _BOUND * _PAD
+        for i, (_letter, chunk) in enumerate(aligned):
+            pos = i + _PAD
+            out = " ".join(chunk)
+            for wi, (lw, rw) in enumerate(WINDOWS):
+                ctx = padded[pos - lw : pos + rw + 1]
+                rule_counts[wi][ctx][out] += 1
+
+    rules: List[Dict[str, str]] = []
+    for wi, table in enumerate(rule_counts):
+        kept: Dict[str, str] = {}
+        min_c = MIN_COUNT.get(wi, 1)
+        for ctx, outs in table.items():
+            out, c = outs.most_common(1)[0]
+            if c >= min_c:
+                kept[ctx] = out
+        rules.append(kept)
+    model = {"windows": WINDOWS, "rules": rules}
+    return model, heldout
 
 
 def predict(model, word: str) -> List[str]:
@@ -182,6 +328,43 @@ def predict_pron(word: str, dictionary, model) -> List[str]:
     return []
 
 
+def phone_accuracy(model, heldout, dictionary=None, stress=True) -> float:
+    """Phone-level agreement (edit-distance based) on held-out words.
+
+    With `dictionary` (held-out words excluded) the full hybrid
+    (morphology + LTS) is evaluated; stress=False compares phonemes
+    ignoring stress digits."""
+    total = correct = 0
+    for word, want in heldout:
+        if dictionary is not None:
+            got = predict_pron(word, dictionary, model)
+        else:
+            got = predict(model, word)
+        if not stress:
+            want = [_base(p) for p in want]
+            got = [_base(p) for p in got]
+        n, m = len(want), len(got)
+        d = [[0] * (m + 1) for _ in range(n + 1)]
+        for i in range(n + 1):
+            d[i][0] = i
+        for j in range(m + 1):
+            d[0][j] = j
+        for i in range(1, n + 1):
+            for j in range(1, m + 1):
+                d[i][j] = min(
+                    d[i - 1][j] + 1,
+                    d[i][j - 1] + 1,
+                    d[i - 1][j - 1] + (want[i - 1] != got[j - 1]),
+                )
+        total += n
+        correct += max(0, n - d[n][m])
+    return correct / max(total, 1)
+
+
+def save_model(model, path: str = MODEL_PATH) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with gzip.open(path, "wb") as f:
+        pickle.dump(model, f, protocol=4)
 
 
 @functools.lru_cache(maxsize=1)
@@ -193,3 +376,46 @@ def load_model(path: str = MODEL_PATH):
             return pickle.load(f)
     except Exception:
         return None
+
+
+def main(argv=None):
+    import argparse
+
+    from jyutvoice_tpu_torch.text.english import get_dict
+
+    ap = argparse.ArgumentParser(description="Train the LTS model from CMUdict")
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--holdout", type=float, default=0.05)
+    ap.add_argument("--iterations", type=int, default=3)
+    ap.add_argument("--out", default=MODEL_PATH)
+    args = ap.parse_args(argv)
+    entries = get_dict()
+    if not entries:
+        raise SystemExit("no CMUdict found (set JYUTVOICE_CMUDICT)")
+    model, heldout = train(
+        entries, iterations=args.iterations, holdout=args.holdout
+    )
+    save_model(model, args.out)
+    sizes = [len(r) for r in model["rules"]]
+    if heldout:
+        held_words = {w for w, _ in heldout}
+        train_dict = {
+            k: v for k, v in entries.items() if k.lower() not in held_words
+        }
+        acc_lts = phone_accuracy(model, heldout)
+        acc_hyb = phone_accuracy(model, heldout, dictionary=train_dict)
+        acc_hyb_ns = phone_accuracy(
+            model, heldout, dictionary=train_dict, stress=False
+        )
+        print(
+            f"trained on {len(entries)} entries; held-out phone accuracy: "
+            f"LTS-only {acc_lts:.3f}, hybrid {acc_hyb:.3f} "
+            f"(stress-free {acc_hyb_ns:.3f}); rule table sizes {sizes}; "
+            f"wrote {args.out}"
+        )
+    else:
+        print(f"trained on {len(entries)} entries; sizes {sizes}; wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -15,12 +15,22 @@ changes layouts, leaf module by leaf module:
                    running_var, weight, bias (no gamma/beta: affine=False)
   LayerNorm        {"g", "b"}                -> weight, bias
   Embedding        {"w": (V, D)}             -> weight (V, D)
+  QuantLinear      {"w_q": int8 (Cin, Cout), "scale": (Cout,), "b"}
+                   -> w_q int8 (Cout, Cin), scale, bias (the int8 leaves of
+                   `nn/quant.py::quantize_estimator`)
   ParameterList    [arrays]                  -> one parameter each
   a module's own parameter (e.g. RelMHA.pos_bias_u, S3Tokenizer.pos)
                    array under its name      -> that parameter
 
-It is strict both ways: a tree leaf that no parameter takes, a parameter that
-no leaf fills, or a shape that differs raises ValueError.
+A module that names children in `QUANTIZABLE` (the estimator's attention
+projections and feed-forward linears) takes a `QuantLinear` in place of its
+`Linear` there when the tree's leaf holds `w_q`: the counterpart of the JAX
+package's `maybe_linear`, which picks the int8 path by tree structure.
+
+It is strict both ways: a tree leaf that no parameter takes, a parameter (or
+a leaf module's buffer, such as `w_q`) that no leaf fills, or a shape that
+differs raises ValueError. Leaves load as float32, except `w_q`, which must
+be int8 and stays so.
 `jax_params_from_module` is its inverse: it undoes each layout change and
 raises when a parameter would be left out of the tree or a leaf module lacks
 one of its required parameters, so a model trained with this package goes
@@ -38,6 +48,7 @@ import torch
 from torch import nn
 
 from jyutvoice_tpu_torch.nn import core
+from jyutvoice_tpu_torch.nn.quant import QuantLinear
 
 # leaf module type -> {tree key: (parameter name, numpy axes permutation)}
 _LEAVES = {
@@ -50,11 +61,28 @@ _LEAVES = {
                      "gamma": ("weight", None), "beta": ("bias", None)},
     core.LayerNorm: {"g": ("weight", None), "b": ("bias", None)},
     core.Embedding: {"w": ("weight", None)},
+    QuantLinear: {"w_q": ("w_q", (1, 0)), "scale": ("scale", None), "b": ("bias", None)},
 }
 
 
-def _fill(param: nn.Parameter, value, path: str, filled: set) -> None:
-    arr = np.array(value, dtype=np.float32)  # a writable copy
+def _leaf_buffers(module: nn.Module):
+    """(name, buffer) of every buffer a leaf module takes from the tree (a
+    QuantLinear's w_q and scale), for the strictness checks beside the
+    parameters."""
+    for mname, m in module.named_modules():
+        for name, _ in _LEAVES.get(type(m), {}).values():
+            t = getattr(m, name)
+            if t is not None and not isinstance(t, nn.Parameter):
+                yield f"{mname}.{name}" if mname else name, t
+
+
+def _fill(param: torch.Tensor, value, path: str, filled: set) -> None:
+    if param.dtype == torch.int8:
+        arr = np.array(value)  # a writable copy
+        if arr.dtype != np.int8:
+            raise ValueError(f"{path}: an int8 leaf, got {arr.dtype}")
+    else:
+        arr = np.array(value, dtype=np.float32)
     if tuple(arr.shape) != tuple(param.shape):
         raise ValueError(
             f"{path}: tree shape {tuple(arr.shape)} does not fit parameter "
@@ -106,14 +134,21 @@ def _load(module: nn.Module, node, path: str, filled: set) -> None:
     for name, param in own.items():
         _fill(param, node[name], f"{path}/{name}" if path else name, filled)
     for name, child in children.items():
+        if (name in getattr(module, "QUANTIZABLE", ()) and type(child) is core.Linear
+                and isinstance(node[name], dict) and "w_q" in node[name]):
+            out_dim, in_dim = child.weight.shape
+            child = QuantLinear(in_dim, out_dim, bias=child.bias is not None)
+            setattr(module, name, child)
         _load(child, node[name], f"{path}/{name}" if path else name, filled)
 
 
 def load_jax_params(module: nn.Module, tree) -> nn.Module:
-    """Copy a JAX parameter tree into `module` in place; returns the module."""
+    """Copy a JAX parameter tree into `module` in place; returns the module.
+    Its QUANTIZABLE linears whose leaves hold w_q become `QuantLinear`."""
     filled: set = set()
     _load(module, tree, "", filled)
-    unfilled = [n for n, p in module.named_parameters() if id(p) not in filled]
+    unfilled = [n for n, p in (*module.named_parameters(), *_leaf_buffers(module))
+                if id(p) not in filled]
     if unfilled:
         raise ValueError(f"parameters not filled by the tree: {unfilled}")
     return module
@@ -127,7 +162,8 @@ def _array(t: torch.Tensor, perm) -> np.ndarray:
     arr = t.detach().cpu().numpy()
     if perm:
         arr = arr.transpose(np.argsort(perm))
-    return np.array(arr, dtype=np.float32)  # a contiguous copy
+    # a contiguous copy; int8 leaves (QuantLinear.w_q) stay int8
+    return np.array(arr, dtype=np.int8 if t.dtype == torch.int8 else np.float32)
 
 
 def _unload(module: nn.Module, path: str, taken: set):
@@ -158,12 +194,14 @@ def _unload(module: nn.Module, path: str, taken: set):
 
 
 def jax_params_from_module(module: nn.Module):
-    """The JAX-layout parameter tree (numpy float32 arrays) of `module`: the
-    inverse of `load_jax_params`, so that `load_jax_params(fresh, tree)`
-    reproduces the module's parameters bit for bit."""
+    """The JAX-layout parameter tree (numpy float32 arrays, int8 for a
+    `QuantLinear`'s w_q) of `module`: the inverse of `load_jax_params`, so
+    that `load_jax_params(fresh, tree)` reproduces the module's parameters
+    and leaf buffers bit for bit."""
     taken: set = set()
     tree = _unload(module, "", taken)
-    left = [n for n, p in module.named_parameters() if id(p) not in taken]
+    left = [n for n, p in (*module.named_parameters(), *_leaf_buffers(module))
+            if id(p) not in taken]
     if left:
         raise ValueError(f"parameters left out of the tree: {left}")
     return tree

@@ -10,7 +10,8 @@ conv (K, Cin, Cout) -> (Cout, Cin, K), linear (Cin, Cout) -> (Cout, Cin),
 the 1x1-conv linears get their kernel axis back, the glow-TTS norms emit
 gamma/beta. Trees hold numpy arrays (anything `np.asarray` takes).
 
-Only the trainable JyutVoiceTTS artifact is exported: HiFT and the flow
+An int8 tree (`nn/quant.py::quantize_estimator`) raises: the reference
+has no int8 format. Only the trainable JyutVoiceTTS artifact is exported: HiFT and the flow
 encoder are frozen upstream artifacts that users already have in torch form.
 """
 
@@ -34,6 +35,11 @@ def _conv(out: SD, name: str, p: dict) -> None:
 
 
 def _linear(out: SD, name: str, p: dict) -> None:
+    if "w_q" in p:
+        raise ValueError(
+            f"{name}: an int8 linear (nn/quant.py::quantize_estimator); the reference "
+            "has no int8 format, so export the f32 tree it was quantized from"
+        )
     out[f"{name}.weight"] = _np(p["w"]).T
     if "b" in p:
         out[f"{name}.bias"] = _np(p["b"])

@@ -23,7 +23,9 @@ from jyutvoice_tpu_torch.pipeline.synthesize import (
     OverLongBatchItems,
     Synthesizer,
 )
-from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees
+from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 WAV_ATOL = 1e-4
 

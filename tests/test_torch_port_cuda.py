@@ -24,7 +24,13 @@ group). The fine-tune workflow: `cli.provision --verify` on its default
 device (kernels 1 and 2, the CPU's mel frames), `prepare_dataset.
 process_batch` on the card against the CPU at the cloning bars, and one
 `cli.train --pretrain --tb-dir` epoch at the 2048-frame bucket (kernels 3,
-4, 5; the decoder unchanged).
+4, 5; the decoder unchanged). The last single-device modules: the int8
+linear on the card (torch._int_mm; its int8 activations and int32 products
+equal the CPU's, output rtol 1e-6; padding below 17 rows, sizes off 8 and
+autograd refused), a small int8 synthesizer on the card against the CPU
+through kernel 1 and kernel 3 (mel MAE < 1e-2), the host MAS on a
+training step's shape bit-equal to the device MAS, and `warmup_long` on the
+card (kernel 3 per exact solve).
 """
 
 import pytest
@@ -888,3 +894,119 @@ def test_train_cli_pretrain_tb_dir_on_the_card(cuda, tmp_path):
     except Exception:  # noqa: BLE001 — tensorboard is optional on the card's machine
         return
     assert glob.glob(str(tmp_path / "tb" / "events.out.tfevents.*"))
+
+
+# ---------------------------------------------------------------------------
+# int8 estimator, host MAS, warmup_long
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,k,n", [(2048, 256, 1024), (2048, 1024, 256), (268, 256, 512),
+                                      (5, 512, 256)])
+def test_quant_linear_on_card_matches_cpu(cuda, rows, k, n):
+    """torch._int_mm on the card (5 rows: padded to 17): the int8
+    activations and the int32 products equal the CPU's, the output within
+    rtol 1e-6."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch.nn import quant
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    rng = np.random.default_rng(rows + k)
+    mod = load_jax_params(quant.QuantLinear(k, n), quant.quantize_linear(
+        {"w": rng.standard_normal((k, n)).astype(np.float32) * 0.05,
+         "b": rng.standard_normal(n).astype(np.float32)}))
+    x = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32) * 3)
+    x_q, sx = quant.quantize_rows(x)
+    acc = quant.int8_matmul(x_q, mod.w_q.t())
+    ref = mod(x)
+    card = mod.to(cuda)
+    cx_q, csx = quant.quantize_rows(x.to(cuda))
+    assert torch.equal(cx_q.cpu(), x_q) and torch.equal(csx.cpu(), sx)
+    assert torch.equal(quant.int8_matmul(cx_q, card.w_q.t()).cpu(), acc)
+    torch.testing.assert_close(card(x.to(cuda)).cpu(), ref, rtol=1e-6, atol=0)
+
+
+def test_quant_linear_on_card_refuses_what_it_cannot_do(cuda):
+    from jyutvoice_tpu_torch.nn import quant
+
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_matmul(torch.ones(32, 12, dtype=torch.int8, device=cuda),
+                          torch.ones(12, 8, dtype=torch.int8, device=cuda))
+    mod = quant.QuantLinear(16, 8).to(cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        mod(torch.ones(32, 16, device=cuda, requires_grad=True))
+
+
+def _int8_small_synth(device):
+    from jyutvoice_tpu_torch.nn.quant import quantize_estimator
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+    from jyutvoice_tpu_torch.weights import random_init
+
+    cfg = _small_synth_cfg()
+    tts = random_init.init_tts_tree(cfg.tts)
+    return Synthesizer(cfg, {**tts, "decoder": quantize_estimator(tts["decoder"])},
+                       random_init.init_hift_tree(cfg.hift), device=device)
+
+
+@pytest.mark.parametrize("long_form", [False, True])
+def test_int8_synthesizer_on_card_matches_cpu(cuda, long_form):
+    """An int8 decoder on the card through kernel 1 (short) or kernel 3
+    (exact long form at the 2048 bucket) against the CPU: mel MAE < 1e-2."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch import kernels
+
+    card, cpu = _int8_small_synth(cuda), _int8_small_synth("cpu")
+    kw = dict(text="佢", lang="yue", phone="keoi5", n_timesteps=2)
+    entry = "synthesize"
+    if long_form:
+        arrs, n, _ = card.prepare_text("佢", "yue", "keoi5")
+        kw.update(attention="exact",
+                  length_scale=1900.0 / card.duration_frames(arrs, n, card._spk(None)))
+        entry = "synthesize_long"
+    kernels.reset_launch_counts()
+    out = getattr(card, entry)(**kw)
+    launches = dict(kernels.LAUNCHES)
+    ref = getattr(cpu, entry)(**kw)
+    est = card.cfg.tts.cfm.estimator
+    per = 2 * (est.num_mid_blocks + 2) * est.n_blocks
+    assert launches["flash_stock" if long_form else "flash_attention"] == per
+    assert out.mel_frames == ref.mel_frames
+    assert np.abs(out.mel - ref.mel).mean() < 1e-2
+
+
+def test_host_mas_on_card_inputs_matches_device_mas(cuda):
+    """The host MAS (native library) on a training step's shape, copied
+    from the card, against the device wavefront, bit for bit."""
+    from jyutvoice_tpu_torch import align
+
+    assert align._get_lib() is not None
+    g = torch.Generator(device=cuda).manual_seed(0)
+    value = torch.randn(2, 64, 2048, device=cuda, generator=g) * 10 - 50
+    mask = torch.zeros(2, 64, 2048, device=cuda)
+    mask[0, :64, :2048] = 1
+    mask[1, :41, :1730] = 1
+    device = align.maximum_path(value, mask)
+    host = align.maximum_path_host(value.cpu().numpy(), mask.cpu().numpy())
+    assert torch.equal(device.cpu(), torch.from_numpy(host))
+
+
+def test_warmup_long_on_card_drives_kernel_3(cuda):
+    from jyutvoice_tpu_torch import kernels
+
+    synth = _small_synth(cuda)
+    est = synth.cfg.tts.cfm.estimator
+    per = 2 * (est.num_mid_blocks + 2) * est.n_blocks
+    seen = []
+
+    def log_fn(_msg):
+        seen.append(dict(kernels.LAUNCHES))
+        kernels.reset_launch_counts()
+
+    kernels.reset_launch_counts()
+    n = synth.warmup_long(mel_sizes=(2048,), text_buckets=(1024,), n_timesteps=(2,),
+                          with_prompt=True, attention="exact", log_fn=log_fn)
+    assert n == 3
+    assert [s["flash_stock"] for s in seen] == [0, per, per]  # text, 2048, 512 + 2048
+    assert [s["resblock_stage"] for s in seen] == [0, 3, 3]

@@ -1,9 +1,10 @@
 """The port stands alone: no module of `jyutvoice_tpu_torch`, and not
 `chip_smoke.py`, imports JAX or the JAX package or names a path into it, the
 port reads its own copy of the LTS rule table (and of the modules it copies
-byte for byte), and it synthesizes, streams, trains, clones a voice and
-serves (the batching engine and the HTTP server) in a process where JAX and
-the JAX package are import-blocked."""
+byte for byte), and it synthesizes, streams, trains, clones a voice,
+serves (the batching engine and the HTTP server), serves an int8 estimator,
+warms the long-form shapes, runs the host MAS and trains the LTS in a
+process where JAX and the JAX package are import-blocked."""
 
 import ast
 import os
@@ -159,10 +160,11 @@ def test_port_trains_with_jax_blocked():
     assert "PORT_TRAINS_STANDALONE_OK" in proc.stdout
 
 
-@pytest.mark.parametrize("rel", ["audio/resample.py", "weights/onnx_reader.py"])
+@pytest.mark.parametrize("rel", ["audio/resample.py", "weights/onnx_reader.py", "align/mas.cpp"])
 def test_byte_for_byte_copies(rel):
     """Modules the port copies unchanged from the JAX package (numpy and the
-    standard library only) stay identical to their originals."""
+    standard library only, and the host MAS's C++ source) stay identical to
+    their originals."""
     with open(os.path.join(PORT, rel), "rb") as a, \
             open(os.path.join(REPO, "jyutvoice_tpu", rel), "rb") as b:
         assert a.read() == b.read()
@@ -279,3 +281,40 @@ def test_port_serves_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_SERVES_STANDALONE_OK" in proc.stdout
+
+
+_SLICE11_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+from jyutvoice_tpu_torch import align
+from jyutvoice_tpu_torch.nn.quant import QuantLinear, quantize_estimator
+from jyutvoice_tpu_torch.text import lts
+
+tts = init_tts_tree(cfg.tts)
+s = Synthesizer(cfg, {**tts, "decoder": quantize_estimator(tts["decoder"])},
+                init_hift_tree(cfg.hift), device="cpu")
+assert isinstance(s.tts.decoder.up.blocks[0].attn.o, QuantLinear)
+r = s.synthesize("佢", lang="yue", phone="keoi5", n_timesteps=2)
+assert r.wav.shape == (r.mel_frames * 480,) and np.isfinite(r.wav).all()
+assert s.warmup_long(mel_sizes=(128,), text_buckets=(32,), n_timesteps=(1,)) == 2
+value = np.random.default_rng(0).standard_normal((2, 5, 9)).astype(np.float32)
+mask = np.ones((2, 5, 9), np.float32)
+mask[1, 3:] = 0
+mask[1, :, 6:] = 0
+path = align.maximum_path_host(value, mask)
+assert (path.sum(axis=1) == mask[:, 0]).all()
+model, held = lts.train({"CAT": [["K", "AE1", "T"]], "CATS": [["K", "AE1", "T", "S"]],
+                         "TACK": [["T", "AE1", "K"]]}, iterations=1)
+assert model["rules"] and held == []
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_SLICE11_STANDALONE_OK", r.mel_frames)
+"""
+
+
+def test_int8_host_mas_warmup_long_and_lts_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SLICE11_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_SLICE11_STANDALONE_OK" in proc.stdout

@@ -33,7 +33,9 @@ from jyutvoice_tpu_torch.nn.flash_stock import flash_stock, flash_stock_plain
 from jyutvoice_tpu_torch.pipeline import buckets as pbuckets
 from jyutvoice_tpu_torch.pipeline import synthesize as psyn
 from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
-from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees
+from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 EST = dict(atol=5e-3, rtol=2e-2)
 WAV_ATOL = 1e-4

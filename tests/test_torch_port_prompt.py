@@ -35,6 +35,9 @@ from jyutvoice_tpu_torch.models import campplus, flow_encoder, s3_tokenizer
 from jyutvoice_tpu_torch.nn import attention
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 from chip_smoke import flow_encoder_state, hift_state
+from torch_port_setup import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL, RTOL = 1e-5, 1e-4
 

@@ -29,7 +29,9 @@ from jyutvoice_tpu_torch.pipeline.synthesize import (
     OverLongBatchItems,
     Synthesizer,
 )
-from torch_port_setup import PORT_CFG, jax_trees
+from torch_port_setup import PORT_CFG, jax_trees, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 T = 120  # seconds: the bound of every wait below
 

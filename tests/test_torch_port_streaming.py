@@ -31,7 +31,9 @@ from jyutvoice_tpu_torch.nn import attention as pattn
 from jyutvoice_tpu_torch.pipeline import streaming
 from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
 from jyutvoice_tpu_torch.weights import random_init
-from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees
+from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CHUNK = 50
 

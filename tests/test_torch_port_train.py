@@ -64,7 +64,9 @@ from jyutvoice_tpu_torch.train import datamodule as pdm
 from jyutvoice_tpu_torch.train import step as pstep
 from jyutvoice_tpu_torch.train.prefetch import prefetch
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
-from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees
+from torch_port_setup import JAX_CFG, PORT_CFG, jax_trees, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_RTOL = 1e-4
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
