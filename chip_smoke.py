@@ -184,12 +184,35 @@ Phases, each printing its own lines; any failure exits non-zero:
      must not run), on the MAS inputs of phase 9's steps (B=2 at the 2048
      bucket, B=16 at mel 512) bit-equal to the device maximum_path, both
      timed, the host's with its copies to and from the card.
+  12. the serving export at full width (seeded random trees, 10 steps,
+     phase 6's sentence and text bucket): 12a aot_compile at the 512
+     bucket, 12b with phase 6's 100-frame prompt in its prompt bucket, 12c
+     at the 15000 bucket (about 13000 frames: kernel 1 at T=15000 and the
+     windowed vocoder at batch 8 inside the CUDA graph), every program on
+     one Synthesizer's shared weights; each with the capture's seconds, its
+     peak device memory and the memory it holds after it, 560 kernel-1 and
+     2 kernel-2 launches at capture and in one replay (a torch.profiler
+     trace of the card), the replay against the eager ServingGraph (max
+     |diff| <= 1e-6, lengths equal), call 1's result kept after call 2,
+     a wrong shape refused, and Synthesizer.synthesize in the same bucket
+     (frames equal, mel MAE < 1e-2); 12d export_program and load_program at
+     the 512 bucket, 10 steps (trace seconds, artifact bytes, load
+     seconds; the reloaded program against the eager ServingGraph on
+     "xla_scores" within 1e-6 and against 12a's program, frames equal, mel
+     MAE < 1e-2; the artifact deleted); CUDA-event medians of 5 warm calls
+     of the replay, the eager ServingGraph and synthesize at 512 and 15000
+     and of the reloaded program and its eager module; 12e kernels 1
+     and 2 on the first input of each shape the eager calls of 12a-12c
+     handed them (kernel 1 at T=15000 on two heads), as in phase 6g.
 Launch counts are zeroed before and read after each request of phases 6,
 6b and 7, each streamed chunk and multi-session tick of phase 6d, each
 engine group, lane run and HTTP block of phase 6f, each training step of
 phase 9, the verify call, each training step, the validation pass and the
 validation sample of phase 10, and each request, batch, engine group and
-warmup_long job of phase 11. The line before the last is a JSON
+warmup_long job of phase 11, and each eager call, capture and synthesize of
+phase 12, whose replays add the launches of their program's traced
+replay. The line
+before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
 available.
@@ -198,6 +221,7 @@ available.
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -475,30 +499,14 @@ def phase_flash():
     for t, lens in ((15000, [15000, 13000]), (15512, [15512, 15000])):
         q, k, v = (torch.randn(b, t, h, 64, device="cuda", generator=g) for _ in range(3))
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out = flash_attention(q, k, v, lengths, scale=0.125)
-        err, ok = 0.0, True
-        for hd in (0, h - 1):
-            one = slice(hd, hd + 1)
-            ref = flash_attention_plain(q[:, :, one], k[:, :, one], v[:, :, one], lengths,
-                                        scale=0.125)
-            for i, n in enumerate(lens):
-                err = max(err, float((out[i, :n, one] - ref[i, :n]).abs().max()))
-                ok &= within(out[i, :n, one], ref[i, :n], ATTN_TOL)
-            del ref
-            torch.cuda.empty_cache()
+        err, ms, bound_ms, bound_by = _flash_heads_case("", q, k, v, lengths, dict(scale=0.125))
         worst = max(worst, err)
-        log(f"flash T={t} lengths={lens} heads 0 and {h - 1}: max_abs_err={err:.3e} ok={ok}")
-        if not ok:
-            fail(f"flash attention disagrees with its plain version at T={t}")
-        del out
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, scale=0.125), 5, warmup=1)
         keep = key_keep_mask(lengths, t, 0, -1)
         qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         lib_ms = cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep, scale=0.125), 2,
             warmup=1)
         pairs = t * sum(lens) * h  # every row sees its batch's valid keys
-        bound_ms, bound_by = bound(4 * b * t * h * 64 * 4, 4 * pairs * 64, PEAK_BF16_FLOPS)
         log(f"flash T={t} lengths={lens} (top bucket, times only): ms={ms:.4f} "
             f"sdpa_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
             f"tflops={4 * pairs * 64 / ms / 1e9:.1f}")
@@ -3284,6 +3292,285 @@ def phase_host_mas(mas_inputs, smi):
         align._maximum_path_numpy = real_numpy
 
 
+SERVE_EXPORT_TOL = 1e-6  # replay / reloaded artifact against the eager module (the JAX test's bar)
+SERVE_EXPORT_TOP = (15000, 13000)  # 12c: the top mel bucket, and the frames asked for there
+
+
+def _flash_heads_case(label, q, k, v, lengths, kw):
+    """Kernel 1 at the top mel bucket: all heads through the kernel, heads 0
+    and H-1 against the plain version on the valid rows (the plain
+    version's scores of all heads do not fit), then the kernel timed alone.
+    Returns (max |err|, ms, bound ms, what bounds it)."""
+    import torch
+
+    from jyutvoice_tpu_torch.nn.flash_attention import flash_attention, flash_attention_plain
+
+    b, t, h, d = q.shape
+    lens = lengths.tolist()
+    out = flash_attention(q, k, v, lengths, **kw)
+    err, ok = 0.0, True
+    for hd in (0, h - 1):
+        one = slice(hd, hd + 1)
+        ref = flash_attention_plain(q[:, :, one], k[:, :, one], v[:, :, one], lengths, **kw)
+        for i, n in enumerate(lens):
+            err = max(err, float((out[i, :n, one] - ref[i, :n]).abs().max()))
+            ok &= within(out[i, :n, one], ref[i, :n], ATTN_TOL)
+        del ref
+        torch.cuda.empty_cache()
+    del out
+    log(f"flash {label}T={t} lengths={lens} heads 0 and {h - 1}: max_abs_err={err:.3e} ok={ok}")
+    if not ok:
+        fail(f"flash attention disagrees with its plain version at {label}T={t}")
+    ms = cuda_time_ms(lambda: flash_attention(q, k, v, lengths, **kw), 5, warmup=1)
+    pairs = t * sum(lens) * h  # every row sees its batch's valid keys
+    return (err, ms, *bound(4 * b * t * h * d * 4, 4 * pairs * d, PEAK_BF16_FLOPS))
+
+
+def _max_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def _replay_kernel(name):
+    """Which of the port's kernels a device kernel of a trace is, by its
+    name, or None. Kernels 1 and 3 share the template flash_fwd_sm90,
+    whose last argument (kF16) is false for kernel 1 and true for 3."""
+    if "resblock_stage_sm90" in name:
+        return "resblock_stage"
+    if "flash_fwd_sm90" in name:
+        return "flash_stock" if re.search(r"true>\(|Lb1EEv", name) else "flash_attention"
+    return None
+
+
+def replay_launches(prog, args):
+    """The port's kernels that one replay of a bucket program runs, counted
+    by name in a torch.profiler trace of the card (the replay is one of the
+    program's own). Returns ({kernel: launches}, device kernels in all)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prog(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {}
+    for name in names:
+        kernel = _replay_kernel(name)
+        if kernel:
+            seen[kernel] = seen.get(kernel, 0) + 1
+    return seen, len(names)
+
+
+def phase_serving_export(params_tts, params_hift, scale, smi):
+    """12, the serving export at full width (seeded random trees, 10 steps,
+    phase 6's sentence and text bucket): 12a aot_compile at the 512 bucket,
+    12b the same with phase 6's 100-frame prompt in its prompt bucket, 12c
+    at the 15000 bucket (about 13000 frames: kernel 1 at T=15000 and the
+    windowed vocoder at batch 8 inside the graph). Every program shares the
+    weights of one Synthesizer's modules. Each: the capture's seconds, its
+    peak device memory and what it holds after it (the reserved memory's
+    growth: its graph's private pool and static buffers), its launches at
+    capture (560 of kernel 1 and 2 of kernel 2) and those of one replay,
+    counted in a torch.profiler trace of the card, the replay against the
+    eager ServingGraph on the same inputs (max |diff| <= SERVE_EXPORT_TOL,
+    lengths equal), call 1's result unchanged by call 2 on other inputs,
+    wrong shapes refused, and Synthesizer.synthesize on the same text in
+    the same bucket (frames equal, mel MAE < 1e-2). 12d export_program /
+    load_program at the 512 bucket, 10 steps: trace, artifact bytes, load;
+    the reloaded program against the eager ServingGraph on "xla_scores"
+    (max |diff| <= SERVE_EXPORT_TOL) and against 12a's program (frames
+    equal, mel MAE < 1e-2). CUDA-event medians of 5 warm calls of the
+    replay, the eager ServingGraph and synthesize at 512 and 15000, and of
+    the reloaded program and the eager module on "xla_scores" at 512. 12e:
+    kernels 1 and 2 on the first input of each shape that the eager calls
+    of 12a-12c handed them. Returns (launches: the Python-counted ones plus
+    each program's replays times the launches of its traced replay; kernel
+    1's and 2's max |err|; phase 12's fields; kernel 1's and 2's fields)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.pipeline import buckets, serving
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+
+    log(f"serving export: torch {torch.__version__}")
+    cfg = JyutVoiceConfig()
+    est = cfg.tts.cfm.estimator
+    per_request = dict(flash_attention=10 * (est.num_mid_blocks + 2) * est.n_blocks,
+                       resblock_stage=2)
+    synth = Synthesizer(cfg, params_tts, params_hift, device="cuda")
+    yue = dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3")
+    rng = np.random.default_rng(0)  # phase 6's prompted request's draws
+    spk = rng.standard_normal(192).astype(np.float32)
+    pf = rng.standard_normal((100, 80)).astype(np.float32)
+    ph = rng.standard_normal((100, 80)).astype(np.float32)
+    arrs, n, t_text = synth.prepare_text(**yue)
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    programs = []  # (replays, launches of a traced replay) of every BucketProgram built
+    captured, fields = {}, {}
+
+    def counted(fn, *a, **kw):
+        kernels.reset_launch_counts()
+        out = fn(*a, **kw)
+        for key in counts:
+            counts[key] += kernels.LAUNCHES[key]
+        return out
+
+    def eager(graph, args):
+        with torch.inference_mode():
+            return graph(*args)
+
+    def bucket_case(key, t_mel, length_scale, prompted, timings):
+        t_prompt = buckets.pick_prompt_bucket(100, t_mel) if prompted else 0
+        prompt = dict(spk_embed=spk, prompt_feat=pf, prompt_h=ph) if prompted else {}
+        args = serving.request_args(arrs, n, t_prompt=t_prompt, device="cuda", **prompt)
+        graph = serving.build_serving_fn(cfg, synth.tts, synth.hift, t_text=t_text,
+                                         t_mel=t_mel, t_prompt=t_prompt, n_timesteps=10,
+                                         length_scale=length_scale, device="cuda")
+        kernels.reset_launch_counts()
+        with serving_kernel_inputs(captured, f"phase 12 {key}"):
+            ref = counted(eager, graph, args)
+        torch.cuda.synchronize()
+        if {k: v for k, v in kernels.LAUNCHES.items() if v} != per_request:
+            fail(f"12 {key}: the eager ServingGraph launched {dict(kernels.LAUNCHES)}")
+        torch.cuda.empty_cache()
+        base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        prog = counted(serving.BucketProgram, graph)
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        torch.cuda.empty_cache()
+        held_gib = (torch.cuda.memory_reserved() - base_reserved) / 2**30
+        out = prog(*args)
+        diff = _max_diff(out[:2], ref[:2])
+        same_len = torch.equal(out[2], ref[2])
+        keep = [o.clone() for o in out]
+        other = serving.request_args(arrs, n, spk_embed=np.ones(192, np.float32),
+                                     t_prompt=t_prompt, device="cuda", **({} if not prompted
+                                     else dict(prompt_feat=pf[:60], prompt_h=ph[:60])))
+        out2 = prog(*other)
+        fresh = all(torch.equal(o, k) for o, k in zip(out, keep)) and \
+            not torch.equal(out[1], out2[1])
+        try:
+            prog(torch.zeros((1, t_text + 1), dtype=torch.int32, device="cuda"), *args[1:])
+            refused = False
+        except ValueError:
+            refused = True
+        replayed, device_kernels = replay_launches(prog, args)
+        res = counted(synth.synthesize, **yue, length_scale=length_scale, n_timesteps=10,
+                      **prompt)
+        frames = int(out[2][0])
+        mel = out[1][0, :frames].cpu().numpy()
+        mae = float(np.abs(mel - res.mel).mean()) if res.mel_frames == frames else float("inf")
+        bucket = buckets.pick_bucket(res.mel_frames, buckets.MEL_BUCKETS)
+        log(f"12 {key}: t_text={t_text} t_mel={t_mel} t_prompt={t_prompt} frames={frames} "
+            f"capture {prog.capture_s:.2f} s (warm call + capture), peak {peak_gib:.2f} GiB, "
+            f"held after capture {held_gib:.2f} GiB (reserved); launches at capture "
+            f"{prog.launches}, in a traced replay {replayed} of {device_kernels} device "
+            f"kernels; replay vs eager max |diff| {diff:.3e} (bar {SERVE_EXPORT_TOL}), lengths "
+            f"equal {same_len}; call 1 kept after call 2 {fresh}; a wrong shape refused "
+            f"{refused}; vs synthesize (bucket {bucket}, {res.mel_frames} frames) mel MAE "
+            f"{mae:.3e} ({smi})")
+        if (prog.launches != per_request or replayed != per_request
+                or not diff <= SERVE_EXPORT_TOL or not same_len or not fresh or not refused
+                or bucket != t_mel or not mae < 1e-2
+                or not np.isfinite(out[0].cpu().numpy()).all()):
+            fail(f"12 {key}: the bucket program failed its checks")
+        fields.update({f"{key}_capture_s": prog.capture_s, f"{key}_peak_gib": peak_gib,
+                       f"{key}_held_gib": held_gib})
+        if timings:
+            ms = {"replay": _event_ms(lambda: prog(*args), loops=5)[1],
+                  "eager": counted(lambda: _event_ms(lambda: eager(graph, args), loops=5)[1])}
+            runs = []
+            ms["synthesize"] = counted(lambda: _event_ms(
+                lambda: runs.append(synth.synthesize(**yue, length_scale=length_scale,
+                                                     n_timesteps=10)), loops=5)[1])
+            ms["synthesize_mel_vocoder"] = statistics.median(
+                (r.timings["mel"] + r.timings["vocoder"]) * 1e3 for r in runs[1:])
+            log(f"12 {key} times, CUDA-event medians of 5 warm calls: "
+                f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} ({smi})")
+            fields.update({f"{key}_{k}_ms": v for k, v in ms.items()})
+        programs.append((prog, replayed))
+        return prog
+
+    prog512 = bucket_case("512", 512, scale, False, True)
+    # the speaker embedding moves the durations: scale them into the 512 bucket again
+    spk_t = torch.as_tensor(spk, device="cuda").reshape(1, -1)
+    bucket_case("512_prompted", 512, 480.0 / synth.duration_frames(arrs, n, spk_t), True,
+                False)
+    top, top_frames = SERVE_EXPORT_TOP
+    bucket_case(str(top), top, scale_for(synth, top_frames, **yue), False, True)
+
+    # 12d: the exported artifact at the 512 bucket, 10 steps, against 12a's program
+    args = serving.request_args(arrs, n, device="cuda")
+    bucket = dict(t_text=t_text, t_mel=512, n_timesteps=10, length_scale=scale,
+                  device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "bucket512.pt2")
+        t0 = time.perf_counter()
+        program = serving.export_program(cfg, params_tts, params_hift, path, **bucket)
+        trace_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        ops = sum(1 for nd in program.graph.nodes if nd.target is
+                  torch.ops.jyutvoice.resblock_stage.default)
+        del program
+        t0 = time.perf_counter()
+        loaded = serving.load_program(path)
+        load_s = time.perf_counter() - t0
+    out = counted(loaded, *args)
+    scores = serving.build_serving_fn(serving.export_safe_cfg(cfg), params_tts, params_hift,
+                                      **bucket)
+    ref = counted(eager, scores, args)
+    kern = prog512(*args)
+    diff = _max_diff(out[:2], ref[:2])
+    frames = int(out[2][0])
+    mae = float((out[1] - kern[1]).abs().mean())
+    log(f"12d export: 10 steps, trace {trace_s:.1f} s, artifact {nbytes} bytes, load "
+        f"{load_s:.1f} s, {ops} jyutvoice.resblock_stage nodes; reloaded vs eager "
+        f"ServingGraph on xla_scores max |diff| {diff:.3e} (bar {SERVE_EXPORT_TOL}), lengths "
+        f"equal {torch.equal(out[2], ref[2])}; vs 12a's program: frames "
+        f"{frames}/{int(kern[2][0])}, mel MAE {mae:.3e} ({smi})")
+    if (not diff <= SERVE_EXPORT_TOL or not torch.equal(out[2], ref[2]) or ops != 2
+            or frames != int(kern[2][0]) or not mae < 1e-2):
+        fail("12d: the reloaded artifact failed its checks")
+    ms = {"reloaded": counted(lambda: _event_ms(lambda: loaded(*args), loops=5)[1]),
+          "eager_scores": counted(lambda: _event_ms(lambda: eager(scores, args), loops=5)[1])}
+    log(f"12d times, CUDA-event medians of 5 warm calls: "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} ({smi})")
+    fields.update(export_trace_s=trace_s, export_artifact_bytes=nbytes, export_load_s=load_s,
+                  **{f"export_{k}_ms": v for k, v in ms.items()})
+    del loaded, scores, out, ref, kern, prog512
+
+    replayed = {k: sum(p.replays * per.get(k, 0) for p, per in programs) for k in counts}
+    log(f"12 launches: counted in Python {counts}, by replays {replayed} ({len(programs)} "
+        f"programs, {sum(p.replays for p, _ in programs)} replays)")
+    counts = {k: counts[k] + replayed[k] for k in counts}
+    del programs
+    torch.cuda.empty_cache()
+
+    # 12e: kernels 1 and 2 on this phase's own inputs
+    torch.cuda.synchronize()
+    flash_err, top = 0.0, {}
+    for key in [k for k in captured if k[0] == "flash_attention" and k[1][1] > 4096]:
+        case = captured.pop(key)
+        err, ms, bound_ms, bound_by = _flash_heads_case(f"({case['label']}) ", *case["inputs"],
+                                                        case["kw"])
+        log(f"serve flash ({case['label']}) T={key[1][1]}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
+            f"({bound_by}) ({smi})")
+        top[f"b{key[1][0]}_t{key[1][1]}"] = dict(ms=ms, bound_ms=bound_ms)
+        flash_err = max(flash_err, err)
+        del case
+    if not top:
+        fail("phase 12 handed kernel 1 no input at the 15000 bucket")
+    err, stage_err, flash, stage = phase_serve_path_kernels(synth, captured, smi, phase="12")
+    flash.update(top)
+    del synth, captured
+    torch.cuda.empty_cache()
+    return counts, max(flash_err, err), stage_err, fields, flash, stage
+
+
 PHASE_S = {}  # phase name -> wall seconds, printed before the result
 
 
@@ -3395,6 +3682,16 @@ def main():
     stage["max_abs_err"] = max(stage["max_abs_err"], int8_stage_err)
     for kernel, cases in ((flash, int8_flash), (stage, int8_stage)):
         kernel.update({f"int8_{case}_{k}": v for case, d in cases.items() for k, v in d.items()})
+
+    sx_counts, sx_flash_err, sx_stage_err, sx_fields, sx_flash, sx_stage = timed(
+        "12 serving export", phase_serving_export, params_tts, params_hift, scale, smi)
+    counts = {k: counts[k] + sx_counts[k] for k in counts}
+    flash["max_abs_err"] = max(flash["max_abs_err"], sx_flash_err)
+    stage["max_abs_err"] = max(stage["max_abs_err"], sx_stage_err)
+    for kernel, cases in ((flash, sx_flash), (stage, sx_stage)):
+        kernel.update({f"serving_export_{case}_{k}": v for case, d in cases.items()
+                       for k, v in d.items()})
+        kernel.update({f"serving_export_{k}": v for k, v in sx_fields.items()})
 
     line = {"kernels": [
         dict(name="flash_attention", route="cuda",

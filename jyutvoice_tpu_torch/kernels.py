@@ -192,6 +192,17 @@ def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
         )
 
 
+def tracing() -> bool:
+    """True while torch.export or torch.compile traces (dynamo, or an active
+    FakeTensor mode): tensors made then are not real, so no cache may keep
+    them and no kernel may be launched."""
+    if torch.compiler.is_compiling():
+        return True
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
+
+
 def check(status: int, name: str) -> None:
     """Raise on a CUDA error code returned by a launch."""
     if status != 0:

@@ -3,12 +3,14 @@
 The counterpart of the JAX package's `models/hift.py` (deterministic inference
 path). The source STFT and the final iSTFT (n_fft=16, hop=4) are framed
 matmuls plus an overlap-add; the upsample stages with C <= 128 run their
-parallel ResBlocks through kernel 2 (`nn/resblock_stage.py`), the others as
-separate convs.
+parallel ResBlocks through kernel 2 (the op `jyutvoice::resblock_stage`,
+`nn/resblock_stage.py`) on weights prepared once and held as the module's
+buffers, the others as separate convs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional, Sequence, Tuple
@@ -18,9 +20,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jyutvoice_tpu_torch import kernels
 from jyutvoice_tpu_torch.config import HiFTConfig
 from jyutvoice_tpu_torch.nn import core
 from jyutvoice_tpu_torch.nn.resblock_stage import (
+    PreparedStage,
     pack_stage_weights,
     prepare_stage_weights,
     resblock_stage_prepared,
@@ -141,17 +145,49 @@ def _ola_inv_envelope(t_frames: int, n_fft: int, hop: int) -> np.ndarray:
     return (1.0 / np.maximum(env.reshape(-1), 1e-11)).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
-def _on_device(make, args: tuple, device: torch.device) -> Tuple[Tensor, ...]:
-    """The arrays of make(*args) as float32 tensors on `device`, copied there
-    once: a copy per call would make every vocoder call wait for the device
-    (a blocking host-to-device copy synchronizes the stream). Made outside
-    inference mode, so autograd may use them."""
+def _to_device(make, args: tuple, device: torch.device) -> Tuple[Tensor, ...]:
     arrays = make(*args)
     arrays = arrays if isinstance(arrays, tuple) else (arrays,)
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
                      for a in arrays)
+
+
+_to_device_cached = functools.lru_cache(maxsize=32)(_to_device)
+_KEEPERS: list = []  # the lists of the open keep_constants() blocks
+
+
+@contextlib.contextmanager
+def keep_constants():
+    """Collect into the list this yields every cached constant that vocoder
+    calls inside the block read: `_on_device`'s tensors and the kernel
+    stages' prepared buffers. A CUDA graph holds their addresses, not
+    references, so whoever captures one keeps this list: no cache eviction
+    or re-preparation then frees memory that its replays read."""
+    kept: list = []
+    _KEEPERS.append(kept)
+    try:
+        yield kept
+    finally:
+        _KEEPERS.remove(kept)
+
+
+def _kept(tensors: Tuple[Tensor, ...]) -> Tuple[Tensor, ...]:
+    for kept in _KEEPERS:
+        kept.extend(tensors)
+    return tensors
+
+
+def _on_device(make, args: tuple, device: torch.device) -> Tuple[Tensor, ...]:
+    """The arrays of make(*args) as float32 tensors on `device`, copied there
+    once: a copy per call would make every vocoder call wait for the device
+    (a blocking host-to-device copy synchronizes the stream). Made outside
+    inference mode, so autograd may use them. While torch.export traces they
+    are made afresh and not cached: a cached FakeTensor would be what every
+    later eager call gets."""
+    if kernels.tracing():
+        return _to_device(make, args, device)
+    return _kept(_to_device_cached(make, args, device))
 
 
 def small_stft(x: Tensor, n_fft: int, hop: int) -> Tuple[Tensor, Tensor]:
@@ -228,6 +264,9 @@ def _source_down_strides(cfg: HiFTConfig):
     return [int(u) for u in list(np.cumprod(downsample_rates))[::-1]]
 
 
+_STAGE_PARTS = ("flat", "tiles", "params")
+
+
 class HiFT(nn.Module):
     def __init__(self, cfg: HiFTConfig):
         super().__init__()
@@ -256,36 +295,61 @@ class HiFT(nn.Module):
             for k, d in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
         )
         self.conv_post = core.Conv1d(base // (2 ** len(cfg.upsample_rates)), n_fft_src, 7)
-        self._prepared = {}  # stage -> (weights key, PreparedStage)
+        # kernel 2's stages (C <= 128, one dilation schedule for every
+        # branch): each one's weights in both of the kernel's layouts, as
+        # buffers (empty until prepared), so a trace sees them as the
+        # module's own tensors
+        share = len(set(cfg.resblock_dilation_sizes)) == 1
+        self.kernel_stages = tuple(i for i in range(len(cfg.upsample_rates))
+                                   if share and base // (2 ** (i + 1)) <= 128)
+        for i in self.kernel_stages:
+            for part in _STAGE_PARTS:
+                self.register_buffer(f"stage{i}_{part}", torch.empty(0), persistent=False)
+        self._prepared = {}  # stage -> the weights key its buffers were built from
 
-    def prepared_stage(self, i: int):
-        """Stage i's ResBlock weights in kernel 2's layout, built at the first
+    def prepared_stage(self, i: int) -> PreparedStage:
+        """Stage i's ResBlock weights in kernel 2's layouts, built at the first
         call and again only after a weight of the stage was moved or changed
-        in place."""
+        in place. While torch.export traces, the buffers are taken as they
+        are (a FakeTensor has no data pointer to key on): prepare before
+        tracing (`prepare_stages`)."""
         cfg = self.cfg
         n = len(cfg.resblock_kernel_sizes)
         branches = self.resblocks[i * n : (i + 1) * n]
-        weights = [p for br in branches for p in br.parameters()]
-        try:
-            versions = tuple(p._version for p in weights)
-        except RuntimeError:  # inference tensors keep no version counter
-            versions = None
-        key = (tuple(p.data_ptr() for p in weights), versions)
-        cached = self._prepared.get(i)
-        if cached is None or cached[0] != key:
-            dil = tuple(cfg.resblock_dilation_sizes[0])
-            stage = prepare_stage_weights(
-                pack_stage_weights(branches, dil), branches[0].convs1[0].weight.shape[0],
-                cfg.resblock_kernel_sizes, dil,
-            )
-            cached = self._prepared[i] = (key, stage)
-        return cached[1]
+        ks, dil = tuple(cfg.resblock_kernel_sizes), tuple(cfg.resblock_dilation_sizes[0])
+        channels = branches[0].convs1[0].weight.shape[0]
+        if not kernels.tracing():
+            weights = [p for br in branches for p in br.parameters()]
+            try:
+                versions = tuple(p._version for p in weights)
+            except RuntimeError:  # inference tensors keep no version counter
+                versions = None
+            key = (tuple(p.data_ptr() for p in weights), versions)
+            if self._prepared.get(i) != key:
+                stage = prepare_stage_weights(
+                    pack_stage_weights(branches, dil), channels, ks, dil)
+                for part in _STAGE_PARTS:
+                    setattr(self, f"stage{i}_{part}", getattr(stage, part))
+                self._prepared[i] = key
+        elif i not in self._prepared:
+            raise RuntimeError(f"HiFT stage {i} was not prepared before tracing: call "
+                               "prepare_stages() on the real module first")
+        parts = tuple(getattr(self, f"stage{i}_{part}") for part in _STAGE_PARTS)
+        if not kernels.tracing():
+            _kept(parts)
+        return PreparedStage(*parts, channels, ks, dil)
+
+    def prepare_stages(self) -> "HiFT":
+        """Prepare every kernel-2 stage now (before a trace or a capture)."""
+        for i in self.kernel_stages:
+            self.prepared_stage(i)
+        return self
 
     def stage_resblocks(self, i: int, x: Tensor) -> Tensor:
         """The mean of stage i's parallel ResBlocks: kernel 2 for C <= 128
         when the branches share one dilation schedule, else separate convs."""
         cfg = self.cfg
-        if x.shape[-1] <= 128 and len(set(cfg.resblock_dilation_sizes)) == 1:
+        if i in self.kernel_stages:
             return resblock_stage_prepared(x.contiguous(), self.prepared_stage(i))
         n = len(cfg.resblock_kernel_sizes)
         branches = self.resblocks[i * n : (i + 1) * n]

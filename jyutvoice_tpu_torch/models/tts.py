@@ -53,6 +53,43 @@ class SynthesisOutput(NamedTuple):
     durations: Tensor  # (B, T_text) frame durations
 
 
+def _prompt_offsets(prompt_lengths: Tensor, t_prompt_pad: int, device) -> Tensor:
+    """(B,) int64 offsets of the generated frames: the true prompt lengths
+    clamped to [0, t_prompt_pad], as lax.dynamic_update_slice and
+    dynamic_slice clamp their start."""
+    return torch.clamp(prompt_lengths.to(device=device, dtype=torch.int64), 0, t_prompt_pad)
+
+
+def graft_prompt(mu_y: Tensor, prompt_feat: Tensor, prompt_h: Tensor,
+                 prompt_lengths: Tensor):
+    """The CFM inputs of a prompted request, on the device: (mu, conds), each
+    (B, T_prompt_pad + T_mel, 80). conds holds prompt_feat at the head; mu
+    holds prompt_h at the head and mu_y from each row's true prompt length
+    on, so prompt and speech frames are contiguous. Copies only, and nothing
+    is read on the host, so a CUDA graph captures it and torch.export traces
+    it."""
+    b, t_mel, n_feats = mu_y.shape
+    total = prompt_feat.shape[1] + t_mel
+    off = _prompt_offsets(prompt_lengths, prompt_feat.shape[1], mu_y.device)
+    tail = torch.zeros((b, t_mel, n_feats), dtype=mu_y.dtype, device=mu_y.device)
+    conds = torch.cat([prompt_feat.to(mu_y.dtype), tail], dim=1)
+    head = torch.cat([prompt_h.to(mu_y.dtype), tail], dim=1)
+    rel = torch.arange(total, device=mu_y.device)[None, :] - off[:, None]  # (B, total)
+    from_y = ((rel >= 0) & (rel < t_mel))[..., None]
+    grafted = torch.gather(mu_y, 1, rel.clamp(0, t_mel - 1)[..., None].expand(b, total, n_feats))
+    return torch.where(from_y, grafted, head), conds
+
+
+def strip_prompt(mel_full: Tensor, prompt_lengths: Tensor, t_prompt_pad: int) -> Tensor:
+    """(B, T_prompt_pad + T_mel, 80) -> the T_mel frames from each row's true
+    prompt length on (clamped as in `graft_prompt`), on the device."""
+    b, total, n_feats = mel_full.shape
+    t_mel = total - t_prompt_pad
+    off = _prompt_offsets(prompt_lengths, t_prompt_pad, mel_full.device)
+    rows = off[:, None] + torch.arange(t_mel, device=mel_full.device)[None, :]
+    return torch.gather(mel_full, 1, rows[..., None].expand(b, t_mel, n_feats))
+
+
 def synthesize_mel(
     model: TTS,
     x_ids: Tensor,
@@ -73,7 +110,7 @@ def synthesize_mel(
     length_scale: float = 1.0,
 ) -> SynthesisOutput:
     """Prompt lengths of zero (and empty prompt arrays) give the path with no
-    voice cloning. prompt_lengths are read on the host for the graft."""
+    voice cloning. Nothing is read back to the host."""
     cfg = model.cfg
     enc = model.encoder(x_ids, x_lengths, lang, tone, word_pos, syllable_pos, spk_embed)
     c = model.spk_embed_affine_layer(l2_normalize(spk_embed, dim=1))  # (B, 80)
@@ -83,7 +120,6 @@ def synthesize_mel(
     w_ceil = torch.ceil(w) * length_scale  # scale AFTER ceil, as the reference
     y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
 
-    b = x_ids.shape[0]
     y_mask = core.sequence_mask(y_lengths, t_mel_max).to(w.dtype)  # (B, T_mel)
     attn_mask = enc.x_mask[:, :, 0][:, :, None] * y_mask[:, None, :]
     attn = core.generate_path(w_ceil[:, :, 0], attn_mask)  # (B, T_text, T_mel)
@@ -91,22 +127,14 @@ def synthesize_mel(
 
     # prompt graft: prompt rows at the head, mu_y right after the true length
     t_prompt_pad = prompt_feat.shape[1]
-    total = t_prompt_pad + t_mel_max
-    mu = torch.zeros((b, total, cfg.output_size), dtype=mu_y.dtype, device=mu_y.device)
-    conds = torch.zeros_like(mu)
-    mu[:, :t_prompt_pad] = prompt_h.to(mu.dtype)
-    conds[:, :t_prompt_pad] = prompt_feat.to(mu.dtype)
-    plens = [int(p) for p in prompt_lengths.tolist()]
-    for i, p in enumerate(plens):
-        mu[i, p : p + t_mel_max] = mu_y[i]
-
+    mu, conds = graft_prompt(mu_y, prompt_feat, prompt_h, prompt_lengths)
     plens_t = prompt_lengths.to(device=mu.device, dtype=torch.int32)
-    mask = core.sequence_mask(plens_t + y_lengths, total).to(mu.dtype)[..., None]
+    mask = core.sequence_mask(plens_t + y_lengths, mu.shape[1]).to(mu.dtype)[..., None]
     mel_full = cfm_forward(
         model.decoder, cfg.cfm, mu, mask, c, conds,
         n_timesteps=n_timesteps, rand_noise=rand_noise, temperature=temperature,
     )
-    mel = torch.stack([mel_full[i, p : p + t_mel_max] for i, p in enumerate(plens)])
+    mel = strip_prompt(mel_full, prompt_lengths, t_prompt_pad)
     mel = mel * y_mask[..., None]
     return SynthesisOutput(
         mel=mel,

@@ -12,8 +12,10 @@ the JAX package's `pack_stage_weights` (`pack_stage_weights` below): per
 branch, per step, [w1 (k, C, C) as (tap, in, out), b1, a1, w2, b2, a2].
 The kernel runs its products on the tensor cores in 3xTF32 and takes its
 weights in another layout, built once by `prepare_stage_weights`: HiFT holds
-the result per stage and calls `resblock_stage_prepared`. The source's header
-says what bounds the kernel and how the design treats it.
+the result per stage and calls `resblock_stage_prepared`, which reaches the
+kernel through the op `jyutvoice::resblock_stage` (`resblock_stage_op`:
+the plain version on the CPU, the launch on CUDA, a fake for torch.export).
+The source's header says what bounds the kernel and how the design treats it.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from jyutvoice_tpu_torch import kernels
@@ -112,14 +115,19 @@ def tf32_round(t: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
+def _swizzle_index(rows: int) -> np.ndarray:
+    r = np.arange(rows)[:, None]
+    c = np.arange(CHUNK_CHANNELS)[None, :]
+    return (r * CHUNK_CHANNELS + (((c // 4) ^ (r % 8)) * 4) + c % 4).reshape(-1)
+
+
 def swizzle_index(rows: int) -> torch.Tensor:
     """Position of element (r, c) of a (rows x 32) f32 tile in its 128-byte-
     swizzled image (16-byte chunk c // 4 of row r stored at chunk
     (c // 4) ^ (r % 8)), flattened: what wgmma reads as a K-major operand.
-    The permutation is its own inverse."""
-    r = torch.arange(rows)[:, None]
-    c = torch.arange(CHUNK_CHANNELS)[None, :]
-    return (r * CHUNK_CHANNELS + (((c // 4) ^ (r % 8)) * 4) + c % 4).reshape(-1)
+    The permutation is its own inverse. The cache holds numpy, so a tensor
+    made while torch.export traces is never kept."""
+    return torch.from_numpy(_swizzle_index(rows).copy())
 
 
 def pass_channels(c: int) -> int:
@@ -267,17 +275,39 @@ def launch_tile(t: int, b: int, c: int, kernel_sizes: Sequence[int], dilations: 
     return pick_tile(t, b, kernel_sizes, dilations, rows, _sm_count(device.index or 0))
 
 
-def resblock_stage_prepared(x: torch.Tensor, stage: PreparedStage) -> torch.Tensor:
-    """(B, T, C) -> (B, T, C) with prepared weights. CUDA tensors launch the
-    kernel; CPU tensors take the plain version. Forward only: raises when
-    autograd would need a gradient through it."""
-    kernels.refuse_autograd("resblock_stage", x, stage.flat)
-    ks, dil = stage.kernel_sizes, stage.dilations
-    if x.device.type == "cpu":
-        return resblock_stage_plain(x, stage.flat, kernel_sizes=ks, dilations=dil)
-    if not (x.is_cuda and stage.tiles.device == x.device and stage.params.device == x.device):
+@torch.library.custom_op("jyutvoice::resblock_stage", mutates_args=(), device_types="cpu")
+def resblock_stage_op(
+    x: torch.Tensor,
+    flat: torch.Tensor,
+    tiles: torch.Tensor,
+    params: torch.Tensor,
+    kernel_sizes: List[int],
+    dilations: List[int],
+) -> torch.Tensor:
+    """Kernel 2 as the op `jyutvoice::resblock_stage`: (B, T, C) -> (B, T, C)
+    from one stage's weights in both layouts (`PreparedStage`'s flat, tiles
+    and params). CPU tensors take the plain version (this function); CUDA
+    tensors launch the kernel (`_resblock_stage_cuda`); under torch.export
+    the fake implementation stands in, so an exported graph holds the op as
+    one node that runs wherever this module is imported."""
+    out = resblock_stage_plain(x, flat, kernel_sizes=tuple(kernel_sizes),
+                               dilations=tuple(dilations))
+    return out.contiguous()
+
+
+@resblock_stage_op.register_fake
+def _resblock_stage_fake(x, flat, tiles, params, kernel_sizes, dilations):
+    return x.new_empty(x.shape)
+
+
+@resblock_stage_op.register_kernel("cuda")
+def _resblock_stage_cuda(x, flat, tiles, params, kernel_sizes, dilations):
+    """The launch: checks what the kernel takes (raises on the rest), runs
+    on the current stream and counts the launch."""
+    ks, dil = tuple(kernel_sizes), tuple(dilations)
+    if not (x.is_cuda and tiles.device == x.device and params.device == x.device):
         raise ValueError("resblock_stage: x and the weights must share one CUDA device")
-    if torch.float32 != x.dtype or {stage.tiles.dtype, stage.params.dtype} != {torch.float32}:
+    if torch.float32 != x.dtype or {tiles.dtype, params.dtype} != {torch.float32}:
         raise ValueError("resblock_stage: x and weights must be float32")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError("resblock_stage: x must be a contiguous (B, T, C) tensor")
@@ -286,10 +316,10 @@ def resblock_stage_prepared(x: torch.Tensor, stage: PreparedStage) -> torch.Tens
         raise ValueError(f"resblock_stage: C={c} not in {KERNEL_CHANNELS}")
     if not 1 <= len(ks) <= 4 or not 1 <= len(dil) <= 4:
         raise ValueError("resblock_stage: 1-4 branches and 1-4 steps")
-    if (stage.channels != c or stage.tiles.dim() != 1 or not stage.tiles.is_contiguous()
-            or stage.tiles.numel() != tiles_numel(c, ks, len(dil))
-            or not stage.params.is_contiguous()
-            or stage.params.numel() != 6 * c * len(ks) * len(dil)):
+    if (tiles.dim() != 1 or not tiles.is_contiguous()
+            or tiles.numel() != tiles_numel(c, ks, len(dil))
+            or not params.is_contiguous()
+            or params.numel() != 6 * c * len(ks) * len(dil)):
         raise ValueError(
             f"resblock_stage: prepared weights are not the kernel's layout for C={c}, "
             f"kernel sizes {ks}, dilations {dil} (use prepare_stage_weights)")
@@ -301,13 +331,28 @@ def resblock_stage_prepared(x: torch.Tensor, stage: PreparedStage) -> torch.Tens
     scratch = torch.empty(b * -(-t // tt) * lib.jv_resblock_stage_scratch(c), device=x.device,
                           dtype=torch.float32)
     status = lib.jv_resblock_stage_fwd(
-        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), stage.tiles.data_ptr(),
-        stage.params.data_ptr(), b, t, c, len(ks), (ctypes.c_int * len(ks))(*ks), len(dil),
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), tiles.data_ptr(),
+        params.data_ptr(), b, t, c, len(ks), (ctypes.c_int * len(ks))(*ks), len(dil),
         (ctypes.c_int * len(dil))(*dil), tt, torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(status, "resblock_stage")
     kernels.count_launch("resblock_stage")
     return out
+
+
+def resblock_stage_prepared(x: torch.Tensor, stage: PreparedStage) -> torch.Tensor:
+    """(B, T, C) -> (B, T, C) with prepared weights, through the op
+    `jyutvoice::resblock_stage` on every device: CUDA tensors launch the
+    kernel, CPU tensors take the plain version. Forward only: raises when
+    autograd would need a gradient through it."""
+    kernels.refuse_autograd("resblock_stage", x, stage.flat)
+    ks, dil = stage.kernel_sizes, stage.dilations
+    if stage.channels != x.shape[-1]:
+        raise ValueError(
+            f"resblock_stage: prepared weights are not the kernel's layout for "
+            f"C={x.shape[-1]}, kernel sizes {ks}, dilations {dil} (prepared for "
+            f"C={stage.channels})")
+    return resblock_stage_op(x, stage.flat, stage.tiles, stage.params, list(ks), list(dil))
 
 
 def resblock_stage(

@@ -30,7 +30,13 @@ equal the CPU's, output rtol 1e-6; padding below 17 rows, sizes off 8 and
 autograd refused), a small int8 synthesizer on the card against the CPU
 through kernel 1 and kernel 3 (mel MAE < 1e-2), the host MAS on a
 training step's shape bit-equal to the device MAS, and `warmup_long` on the
-card (kernel 3 per exact solve).
+card (kernel 3 per exact solve). The serving export: a captured bucket
+program against the eager module (max |diff| <= 1e-6; kernels 1 and 2 in
+the graph at the 128 bucket, the banded route and the windowed vocoder at
+4096; call 2 leaves call 1's result as it was; a replay after the
+constants' cache was cleared and its memory reused), an artifact exported on
+the card against the eager module on "xla_scores" (1e-6), and kernel 2's
+op on CUDA against the plain version at the stage's bars.
 """
 
 import pytest
@@ -1010,3 +1016,131 @@ def test_warmup_long_on_card_drives_kernel_3(cuda):
     assert n == 3
     assert [s["flash_stock"] for s in seen] == [0, per, per]  # text, 2048, 512 + 2048
     assert [s["resblock_stage"] for s in seen] == [0, 3, 3]
+
+
+def _bucket(cuda, t_mel, cfg=None, steps=2):
+    """A small-config ServingGraph of one bucket (text 32) on the card."""
+    from jyutvoice_tpu_torch.pipeline import serving
+    from jyutvoice_tpu_torch.weights import random_init
+
+    cfg = cfg or _small_synth_cfg()
+    return serving.build_serving_fn(cfg, random_init.init_tts_tree(cfg.tts),
+                                    random_init.init_hift_tree(cfg.hift), t_text=32,
+                                    t_mel=t_mel, n_timesteps=steps, device=cuda)
+
+
+def _bucket_args(cuda, seed):
+    from jyutvoice_tpu_torch.pipeline import serving
+
+    g = torch.Generator().manual_seed(seed)
+    args = list(serving.example_args(32, 0, cuda))
+    args[0] = torch.randint(1, 97, (1, 32), generator=g, dtype=torch.int32).to(cuda)
+    args[1] = torch.tensor([24], dtype=torch.int32, device=cuda)
+    args[6] = torch.randn(1, 192, generator=g).to(cuda)
+    return tuple(args)
+
+
+@pytest.mark.parametrize("t_mel", [128, 4096])
+def test_bucket_program_replays_the_eager_graph(cuda, t_mel):
+    """A captured bucket against the eager module on the same inputs (max
+    |diff| <= 1e-6, lengths equal), kernels 1 and 2 inside the graph at the
+    128 bucket, the banded route (plain-torch banded_sdpa) and the windowed
+    vocoder at 4096; call 2 on other inputs leaves call 1's result as it
+    was, and replays launch nothing through the wrappers."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.pipeline import serving
+
+    graph = _bucket(cuda, t_mel)
+    args, other = _bucket_args(cuda, 0), _bucket_args(cuda, 1)
+    with torch.inference_mode():
+        want = graph(*args)
+    kernels.reset_launch_counts()
+    prog = serving.BucketProgram(graph)
+    est = graph.cfg.tts.cfm.estimator
+    flash = 2 * (est.num_mid_blocks + 2) * est.n_blocks if t_mel == 128 else 0
+    assert prog.launches == {k: v for k, v in
+                             (("flash_attention", flash), ("resblock_stage", 3)) if v}
+    counted = dict(kernels.LAUNCHES)
+    out = prog(*args)
+    for o, w in zip(out[:2], want[:2]):
+        assert float((o - w).abs().max()) <= 1e-6
+    assert torch.equal(out[2], want[2])
+    keep = [o.clone() for o in out]
+    out2 = prog(*other)
+    assert all(torch.equal(o, k) for o, k in zip(out, keep))
+    assert not torch.equal(out[1], out2[1])
+    assert kernels.LAUNCHES == counted and prog.replays == 2
+    with pytest.raises(ValueError, match="input x:"):
+        prog(args[0].cpu(), *args[1:])
+
+
+def test_bucket_program_outlives_its_constants_cache(cuda, monkeypatch):
+    """The vocoder's STFT tables come from a bounded cache, which a
+    long-lived server evicts: a replay after the cache was cleared and
+    blocks of the tables' sizes were taken and filled with NaN still equals
+    the eager module (the program keeps what its graph reads)."""
+    from jyutvoice_tpu_torch.models import hift as hift_mod
+    from jyutvoice_tpu_torch.pipeline import serving
+
+    graph = _bucket(cuda, 128)
+    args = _bucket_args(cuda, 0)
+    sizes, on_device = [], hift_mod._on_device
+
+    def spy(make, a, device):
+        out = on_device(make, a, device)
+        sizes.extend(t.numel() for t in out)
+        return out
+
+    hift_mod._to_device_cached.cache_clear()
+    monkeypatch.setattr(hift_mod, "_on_device", spy)
+    with torch.inference_mode():
+        want = graph(*args)
+    monkeypatch.undo()
+    assert sizes
+    prog = serving.BucketProgram(graph)
+    hift_mod._to_device_cached.cache_clear()
+    junk = [torch.full((n,), float("nan"), device=cuda) for n in sizes for _ in range(256)]
+    out = prog(*args)
+    del junk
+    for o, w in zip(out[:2], want[:2]):
+        assert float((o - w).abs().max()) <= 1e-6
+    assert torch.equal(out[2], want[2])
+
+
+def test_exported_bucket_on_the_card_matches_the_eager_graph(cuda, tmp_path):
+    """export_program on the card and load_program: the reloaded artifact
+    against the eager module on "xla_scores" (max |diff| <= 1e-6)."""
+    from jyutvoice_tpu_torch.pipeline import serving
+    from jyutvoice_tpu_torch.weights import random_init
+
+    cfg = _small_synth_cfg()
+    tts, hift = random_init.init_tts_tree(cfg.tts), random_init.init_hift_tree(cfg.hift)
+    path = str(tmp_path / "bucket.pt2")
+    serving.export_program(cfg, tts, hift, path, t_text=32, t_mel=128, n_timesteps=1,
+                           device=cuda)
+    args = _bucket_args(cuda, 2)
+    got = serving.load_program(path)(*args)
+    with torch.inference_mode():
+        want = _bucket(cuda, 128, serving.export_safe_cfg(cfg), steps=1)(*args)
+    for o, w in zip(got[:2], want[:2]):
+        assert o.is_cuda and float((o - w).abs().max()) <= 1e-6
+    assert torch.equal(got[2], want[2])
+
+
+def test_resblock_stage_op_on_the_card_matches_plain(cuda):
+    """The op's CUDA implementation (the kernel's launch) against the plain
+    version at the bars of tests/test_pallas_resblock.py."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn.resblock_stage import prepare_stage_weights, resblock_stage_plain
+
+    ks, dil = (3, 7, 11), (1, 3, 5)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = _stage_weights(g, 64, ks, dil, 1.0)
+    stage = prepare_stage_weights(w, 64, ks, dil)
+    x = torch.randn(2, 3001, 64, device=cuda, generator=g) * 0.5
+    kernels.reset_launch_counts()
+    got = torch.ops.jyutvoice.resblock_stage(x, stage.flat, stage.tiles, stage.params,
+                                             list(ks), list(dil))
+    assert kernels.LAUNCHES["resblock_stage"] == 1
+    torch.testing.assert_close(got, resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil),
+                               atol=2e-5, rtol=1e-4)

@@ -3,8 +3,9 @@
 port reads its own copy of the LTS rule table (and of the modules it copies
 byte for byte), and it synthesizes, streams, trains, clones a voice,
 serves (the batching engine and the HTTP server), serves an int8 estimator,
-warms the long-form shapes, runs the host MAS and trains the LTS in a
-process where JAX and the JAX package are import-blocked."""
+warms the long-form shapes, runs the host MAS, trains the LTS and exports
+and reloads a bucket graph in a process where JAX and the JAX package are
+import-blocked."""
 
 import ast
 import os
@@ -318,3 +319,40 @@ def test_int8_host_mas_warmup_long_and_lts_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_SLICE11_STANDALONE_OK" in proc.stdout
+
+
+_EXPORT_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+import os
+import tempfile
+
+import torch
+
+from jyutvoice_tpu_torch.pipeline import serving
+
+tts, hift = init_tts_tree(cfg.tts), init_hift_tree(cfg.hift)
+args = serving.example_args(16, 0)
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "bucket.pt2")
+    serving.export_program(cfg, tts, hift, path, t_text=16, t_mel=32, n_timesteps=1,
+                           device="cpu")
+    wav, mel, lengths = serving.load_program(path)(*args)
+want = serving.build_serving_fn(serving.export_safe_cfg(cfg), tts, hift, t_text=16, t_mel=32,
+                                n_timesteps=1, device="cpu")(*args)
+assert torch.equal(lengths, want[2]) and float((wav - want[0]).abs().max()) <= 1e-6
+assert wav.shape == (1, 32 * 480) and bool(torch.isfinite(wav).all())
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_EXPORTS_STANDALONE_OK", int(lengths[0]))
+"""
+
+
+def test_port_exports_and_reloads_a_bucket_with_jax_blocked():
+    """export_program, load_program and a call of the reloaded bucket graph
+    in a process where JAX and the JAX package cannot be imported."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXPORT_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_EXPORTS_STANDALONE_OK" in proc.stdout
