@@ -204,6 +204,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      and of the reloaded program and its eager module; 12e kernels 1
      and 2 on the first input of each shape the eager calls of 12a-12c
      handed them (kernel 1 at T=15000 on two heads), as in phase 6g.
+  13. multi-device on torch.distributed (dist/), full width, seeded random
+     trees: 13a data parallel: `python -m jyutvoice_tpu_torch.cli.train`
+     as torchrun-style processes (MASTER_ADDR / WORLD_SIZE / RANK) at world
+     1 over NCCL and world 2 over Gloo with both ranks on cuda:0, 2 steps at
+     global batch 4 in the 2048 bucket (56 launches each of kernels 3, 4, 5
+     and the preparation per rank and step, from each rank's --report),
+     the two runs' losses within 1e-3; then a spawned 2-rank Gloo mesh
+     (this process rank 0) takes one step on 4 unequal rows against one
+     process on the same global batch: losses 1e-3, gradients 2e-2
+     relative L2, the decoder bit-unchanged, the ranks' parameters equal;
+     13b sequence parallel: synthesize_long(mesh=...) at about 4000 frames
+     on 2 Gloo ranks sharing the card (2 steps) and on 1 NCCL rank (10
+     steps), each with "scores", "banded" and "ring" (SP_MESHES, printed
+     first), against
+     the single-device "xla_scores" solve at atol 2e-5 / rtol 1e-4, exact
+     attention (kernel 3) at mel MAE < 1e-2 and, for "banded", the
+     single-device banded path; per-rank solve ms, the share in
+     collectives and peak memory; 13c a long request through
+     ServingEngine(sp_mesh=...) against synthesize_long(mesh=...), the
+     full-width estimator TP-sharded over 2 Gloo ranks (one call, a
+     10-step solve at T=512) against one device, and cli.serve
+     --sp-devices 2 refused on a one-card machine.
 Launch counts are zeroed before and read after each request of phases 6,
 6b and 7, each streamed chunk and multi-session tick of phase 6d, each
 engine group, lane run and HTTP block of phase 6f, each training step of
@@ -211,7 +233,9 @@ phase 9, the verify call, each training step, the validation pass and the
 validation sample of phase 10, and each request, batch, engine group and
 warmup_long job of phase 11, and each eager call, capture and synthesize of
 phase 12, whose replays add the launches of their program's traced
-replay. The line
+replay, and each step, request and solve of phase 13 on every rank (the
+children's and followers' counts come back in their reports and
+gathers). The line
 before the last is a JSON
 object with one entry per kernel; the last line is {"ok": true, "device":
 {...}}. Exits non-zero without printing a result when no CUDA device is
@@ -3574,6 +3598,384 @@ def phase_serving_export(params_tts, params_hift, scale, smi):
 PHASE_S = {}  # phase name -> wall seconds, printed before the result
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: multi-device on torch.distributed (dist/)
+# ---------------------------------------------------------------------------
+
+SP_TOL = (2e-5, 1e-4)  # the JAX package's SP bar (tests/test_sequence_parallel.py)
+# the meshes of phase 13b, the attention modes and the Euler steps each runs,
+# stated before the run: two ranks share the card over Gloo (NCCL refuses two
+# ranks on one GPU; Gloo's point-to-point fails on CUDA tensors, so the
+# ring's exchanges are staged through host memory, dist/mesh.py::
+# GLOO_CUDA_OPS), at 2 steps, since Gloo moves every collective through host
+# memory and a 10-step solve there takes about 20 s; one rank over NCCL at
+# the full 10 steps
+SP_MESHES = (("gloo, 2 ranks on cuda:0", 2, "gloo", ("scores", "banded", "ring"), 2),
+             ("nccl, 1 rank on cuda:0", 1, "nccl", ("scores", "banded", "ring"), 10))
+DDP_ROWS = (1400, 2000)  # dummy mel frames: the 2048 bucket, kernels 3-5
+
+
+def _free_tcp_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_children(tmp, world, backend, device):
+    """`python -m jyutvoice_tpu_torch.cli.train` as `world` torchrun-style
+    processes (MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK):
+    full width, 2 steps at global batch 4 in the 2048 bucket."""
+    port = str(_free_tcp_port())
+    procs = []
+    for r in range(world):
+        out = open(os.path.join(tmp, f"rank{r}.log"), "w")
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                   WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r))
+        argv = [sys.executable, "-m", "jyutvoice_tpu_torch.cli.train", "--dummy",
+                "--dummy-rows", "9", "--dummy-mel", ",".join(map(str, DDP_ROWS)),
+                "--batch-size", "4", "--max-steps", "2", "--log-every", "1",
+                "--ckpt-dir", os.path.join(tmp, "ckpt"),
+                "--report", os.path.join(tmp, "rank{rank}.json"), "--device", device]
+        if backend:
+            argv += ["--dist-backend", backend]
+        procs.append((subprocess.Popen(argv, env=env, stdout=out, stderr=subprocess.STDOUT,
+                                       cwd=os.path.dirname(os.path.abspath(__file__))), out))
+    return procs
+
+
+def _collect_children(label, tmp, procs, timeout):
+    reports = []
+    for r, (p, out) in enumerate(procs):
+        try:
+            p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        out.close()
+        text = open(os.path.join(tmp, f"rank{r}.log")).read()
+        if p.returncode != 0:
+            log(text[-3000:])
+            fail(f"cli.train {label} rank {r} exited with {p.returncode}")
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _ddp_batch():
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
+
+    dm = TextMelDataModule(dummy_rows(9, seed=5, mel_frames=DDP_ROWS), DataConfig(batch_size=4))
+    return next(iter(dm.train_batches(0)))
+
+
+def ddp_rank(mesh, seed, batch):
+    """One rank of phase 13a's data-parallel step (run on every rank of a
+    spawned mesh): the full-width trainer on this rank's rows of the global
+    batch, the all-reduced gradients, then a step. Rank 0 returns the
+    metrics, the gradients and every rank's launches and checks."""
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.dist.mesh import make_mesh
+    from jyutvoice_tpu_torch.models import tts as tts_mod
+    from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    disable_tf32()
+    cfg = JyutVoiceConfig()
+    model = load_jax_params(tts_mod.TTS(cfg.tts), random_init.init_tts_tree(cfg.tts, seed=seed))
+    model = model.to(mesh.device)
+    trainer = Trainer(model, cfg.train, torch.Generator(device=mesh.device).manual_seed(seed),
+                      mesh=make_mesh())
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.startswith("decoder.")}
+    kernels.reset_launch_counts()
+    metrics, grads = trainer.gradients(batch)
+    trainer.step(batch)
+    torch.cuda.synchronize(mesh.device)
+    launches = [kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES]
+    unchanged = all(torch.equal(p, frozen[n]) for n, p in model.named_parameters()
+                    if n.startswith("decoder."))
+    check = float(sum(p.detach().double().sum() for p in trainer.params))
+    row = torch.tensor([launches + [float(unchanged), check]], dtype=torch.float64,
+                       device=mesh.device)
+    rows = torch.cat(mesh.comm().all_gather(row, 0)).cpu()
+    return ({k: float(v) for k, v in metrics.items()}, [g.detach().cpu() for g in grads], rows)
+
+
+def phase_ddp_step(smi):
+    """13a (iii): two Gloo ranks on the card take one data-parallel step on a
+    global batch of 4 unequal rows; one process takes it on the whole batch."""
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.dist.mesh import Mesh
+    from jyutvoice_tpu_torch.models import tts as tts_mod
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    batch = _ddp_batch()
+    lens = [int(v) for v in batch["y_lengths"]]
+    if batch["y"].shape[1] != 2048 or len(set(lens)) != 4:
+        fail(f"the DDP batch is not 4 unequal rows in the 2048 bucket: {lens}")
+    t0 = time.perf_counter()
+    with Mesh.spawn(("data",), (2,), ["cuda:0", "cuda:0"], backend="gloo") as mesh:
+        m2, g2, rows = mesh.run(ddp_rank, 0, batch)
+    ddp_s = time.perf_counter() - t0
+    cfg = JyutVoiceConfig()
+    model = load_jax_params(tts_mod.TTS(cfg.tts), random_init.init_tts_tree(cfg.tts, seed=0))
+    one = Trainer(model.cuda(), cfg.train, torch.Generator(device="cuda").manual_seed(0))
+    kernels.reset_launch_counts()
+    m1, g1 = one.gradients(batch)
+    single = [kernels.LAUNCHES[k] for k in kernels.KERNEL_NAMES]
+    loss_gap = {k: abs(m2[k] - float(v)) / abs(float(v)) for k, v in m1.items()}
+    diff = sum(float(torch.sum((a - b.cpu()) ** 2)) for a, b in zip(g2, g1))
+    ref = sum(float(torch.sum(b.cpu() ** 2)) for b in g1)
+    grad_gap = (diff / ref) ** 0.5
+    per_rank = {r: dict(zip(kernels.KERNEL_NAMES, (int(v) for v in rows[r, :-2])))
+                for r in range(rows.shape[0])}
+    unchanged = bool((rows[:, -2] == 1).all())
+    same_params = float(rows[0, -1]) == float(rows[1, -1])
+    per_step = 56
+    want = {k: (2 * per_step if k.startswith("flash_stock") else 0) for k in kernels.KERNEL_NAMES}
+    log(f"13a DDP step, 2 Gloo ranks on one card (global batch 4, y_lengths {lens}) against one "
+        f"process: loss rel gaps {json.dumps({k: float(f'{v:.3e}') for k, v in loss_gap.items()})}"
+        f" trainable grad rel L2 gap {grad_gap:.3e}, decoder bit-unchanged={unchanged}, ranks' "
+        f"parameters equal after the step={same_params}, per-rank launches {per_rank} (want "
+        f"{want}), one process {dict(zip(kernels.KERNEL_NAMES, single))}; {ddp_s:.1f} s with "
+        f"the follower's start ({smi})")
+    if (max(loss_gap.values()) > TRAIN_LOSS_RTOL or not grad_gap <= TRAIN_GRAD_RTOL
+            or not unchanged or not same_params or any(per_rank[r] != want for r in per_rank)):
+        fail("the data-parallel step does not agree with one process")
+    counts = {k: sum(per_rank[r][k] for r in per_rank) + v
+              for k, v in zip(kernels.KERNEL_NAMES, single)}
+    return counts
+
+
+def phase_ddp_cli(tmp, procs_one, procs_two):
+    """13a (i) and (ii): cli.train at world 1 over NCCL and at world 2 over
+    Gloo on the card (children started before 13a (iii)); their reports."""
+    from jyutvoice_tpu_torch import kernels
+
+    one = _collect_children("world 1 (nccl)", os.path.join(tmp, "one"), procs_one, 600)
+    two = _collect_children("world 2 (gloo)", os.path.join(tmp, "two"), procs_two, 600)
+    want = {k: (2 * 56 if k.startswith("flash_stock") else 0) for k in kernels.KERNEL_NAMES}
+    gaps = {k: abs(two[0]["metrics"][k] - one[0]["metrics"][k]) / abs(one[0]["metrics"][k])
+            for k in ("loss", "dur_loss", "prior_loss", "diff_loss")}
+    log(f"13a cli.train, 2 steps at global batch 4 in the 2048 bucket: world 1 over NCCL "
+        f"{json.dumps(one[0]['metrics'])}; world 2 over Gloo rank 0 "
+        f"{json.dumps(two[0]['metrics'])}, rank 1 {json.dumps(two[1]['metrics'])}; "
+        f"step-2 loss rel gaps {json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})}; "
+        f"launches per rank {[r['launches'] for r in one + two]} (want {want} each)")
+    ok = (all(r["step"] == 2 for r in one + two) and one[0]["world"] == 1
+          and two[0]["world"] == 2 and two[0]["metrics"] == two[1]["metrics"]
+          and max(gaps.values()) <= TRAIN_LOSS_RTOL
+          and all(r["launches"] == want for r in one + two))
+    if not ok:
+        fail("cli.train across ranks does not agree with one rank")
+    return {k: sum(r["launches"][k] for r in one + two) for k in kernels.KERNEL_NAMES}
+
+
+def _mel_gap(a, b):
+    import numpy as np
+
+    d = np.abs(a - b)
+    return float(d.max()), float(d.mean()), bool(np.all(d <= SP_TOL[0] + SP_TOL[1] * np.abs(b)))
+
+
+def phase_sp(synth, scores, smi):
+    """13b: synthesize_long(mesh=...) at about 4000 frames on each mesh of
+    SP_MESHES, each of its attention modes at its step count, against one
+    device at the same steps: "scores" and "ring" against the "xla_scores"
+    synthesizer at the JAX SP bar and against exact attention (kernel 3) at
+    mel MAE < 1e-2; "banded" against the single-device banded path at the
+    JAX SP bar. Per-rank solve ms, the share in collectives and peak memory
+    per rank."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.dist.sp import make_sp_mesh
+
+    yue = dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3")
+    base = dict(yue, length_scale=scale_for(synth, 4000, **yue))
+    log("13b meshes, modes and steps: " + "; ".join(
+        f"{label}: {', '.join(modes)} at {steps} steps" for label, _, _, modes, steps in SP_MESHES))
+    counts = {k: 0 for k in kernels.LAUNCHES}
+    for label, n, backend, modes, steps in SP_MESHES:
+        kw = dict(base, n_timesteps=steps)
+        kernels.reset_launch_counts()
+        refs = {"scores": scores.synthesize_long(**kw),
+                "exact": synth.synthesize_long(attention="exact", **kw),
+                "banded": synth.synthesize_long(attention="banded", **kw)}
+        launches = dict(kernels.LAUNCHES)
+        counts = {k: counts[k] + launches[k] for k in counts}
+        mel_ms = ", ".join(f"{r.timings['mel'] * 1e3:.1f}" for r in refs.values())
+        log(f"13b single-device references (xla_scores, exact, banded) at "
+            f"{refs['exact'].mel_frames} frames, {steps} steps: mel phases {mel_ms} ms; "
+            f"launches {launches} ({smi})")
+        mesh = make_sp_mesh(n, devices=["cuda:0"] * n, backend=backend)
+        mesh.timing = True
+        try:
+            for mode in modes:
+                kernels.reset_launch_counts()
+                res = synth.synthesize_long(mesh=mesh, sp_attention=mode, **kw)
+                launches = dict(kernels.LAUNCHES)
+                stats = mesh.last_stats.numpy()
+                ref = refs["banded" if mode == "banded" else "scores"]
+                mx, mean, ok = _mel_gap(res.mel, ref.mel)
+                mae_exact = float(np.abs(res.mel - refs["exact"].mel).mean())
+                ranks = "; ".join(f"rank {r}: solve {v[0]:.1f} ms, collectives {v[1]:.1f} ms "
+                                  f"({100 * v[1] / v[0]:.1f} %), peak {v[2] / 2**30:.2f} GiB"
+                                  for r, v in enumerate(stats))
+                log(f"13b {label}, {mode}, {steps} steps: mel_frames={res.mel_frames}, against "
+                    f"one device ({'banded' if mode == 'banded' else 'xla_scores'}) max |diff| "
+                    f"{mx:.3e} mean {mean:.3e} within the SP bar={ok}; mel MAE against exact "
+                    f"(kernel 3) {mae_exact:.3e}; mel phase {res.timings['mel'] * 1e3:.1f} ms; "
+                    f"{ranks}; launches {launches} ({smi})")
+                # the band is approximate: held to the single-device band only
+                exact_ok = mode == "banded" or mae_exact < 1e-2
+                if (not ok or res.mel_frames != ref.mel_frames or not exact_ok
+                        or launches["resblock_stage"] != 2
+                        or any(v for k, v in launches.items() if k != "resblock_stage")):
+                    fail(f"sequence-parallel {mode} on {label} does not agree with one device")
+                for k in counts:
+                    counts[k] += launches[k]
+            if n == 2:
+                engine_counts = phase_sp_engine(synth, mesh, steps, smi)
+                counts = {k: counts[k] + engine_counts[k] for k in counts}
+        finally:
+            mesh.close()
+    return counts
+
+
+def phase_sp_engine(synth, mesh, steps, smi):
+    """13c: one long request through ServingEngine(sp_mesh=...) against the
+    same request through synthesize_long(mesh=...)."""
+    import numpy as np
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.pipeline.server import ServingEngine
+
+    text = ("佢係邊個 " * 40).strip()  # past the interactive text cap: the long route
+    phone = " ".join(["keoi5 hai6 bin1 go3"] * 40)
+    ls = scale_for(synth, 2000, text, "yue", phone)
+    want = synth.synthesize_long(text, lang="yue", phone=phone, mesh=mesh, n_timesteps=steps,
+                                 length_scale=ls)
+    kernels.reset_launch_counts()
+    with ServingEngine(synth, max_batch=2, n_timesteps=steps, length_scale=ls, return_mel=True,
+                       sp_mesh=mesh) as engine:
+        t0 = time.perf_counter()
+        res = engine.submit(text, lang="yue", phone=phone).result(timeout=600)
+        ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    gap = float(np.abs(res.mel - want.mel).max())
+    log(f"13c ServingEngine(sp_mesh=2 Gloo ranks) long request: mel_frames={res.mel_frames} "
+        f"(direct {want.mel_frames}), max |mel diff| {gap:.3e}, {ms:.1f} ms, launches "
+        f"{launches} ({smi})")
+    if res.mel_frames != want.mel_frames or gap > SP_TOL[0] or launches["resblock_stage"] != 2:
+        fail("the engine's sequence-parallel long request does not agree with synthesize_long")
+    return launches
+
+
+def phase_tp(synth, smi):
+    """13c: the full-width estimator TP-sharded over two Gloo ranks on the
+    card (H=8: 4 heads a rank, an all_reduce on CUDA after attn-out and
+    ff_out) against one device: one estimator call and a 10-step solve at
+    T=512; then cli.serve --sp-devices 2 refused on a one-card machine."""
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch.cli import serve
+    from jyutvoice_tpu_torch.dist import tp
+    from jyutvoice_tpu_torch.dist.sp import shard_params
+    from jyutvoice_tpu_torch.models.cfm import cfm_forward
+    from jyutvoice_tpu_torch.models.estimator import with_attention_backend
+
+    rng = np.random.default_rng(13)
+    t = 512
+    dev = synth.device
+    arr = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)  # noqa
+    x, mu, cond, spks = arr(2, t, 80), arr(2, t, 80), arr(2, t, 80), arr(2, 80)
+    mask = torch.ones((2, t, 1), device=dev)
+    tt = torch.tensor([0.25, 0.75], device=dev)
+    dec = synth.tts.decoder
+    plain = with_attention_backend(dec, "xla_scores")
+    with torch.inference_mode():
+        want = plain(x, mask, mu, tt, spks, cond)
+        want_mel = cfm_forward(plain, synth.cfg.tts.cfm, mu[:1], mask[:1], spks[:1], cond[:1],
+                               n_timesteps=10, rand_noise=synth.noise)
+    with tp.make_tp_mesh(2, devices=["cuda:0", "cuda:0"], backend="gloo") as mesh:
+        placed = shard_params(dec, mesh)
+        got = tp.tp_estimator(placed, x, mask, mu, tt, spks, cond)
+        t0 = time.perf_counter()
+        got_mel = tp.tp_cfm_solve(dec, synth.cfg.tts.cfm, mesh, n_timesteps=10)(
+            placed, mu[:1], mask[:1], spks[:1], cond[:1], synth.noise[:, :t])
+        solve_ms = (time.perf_counter() - t0) * 1e3
+        stats = mesh.last_stats.numpy()
+        local = mesh.state[placed.key].mid[0].blocks[0].attn.q.weight.shape
+    est_ok = within(got, want, SP_TOL)
+    mx, mean, mel_ok = _mel_gap(got_mel.cpu().numpy(), want_mel.cpu().numpy())
+    log(f"13c TP estimator, 2 Gloo ranks on one card (rank 0's q slice {tuple(local)}): one call "
+        f"max |diff| {float((got - want).abs().max()):.3e} within the SP bar={est_ok}; 10-step "
+        f"solve at T={t} max |diff| {mx:.3e} mean {mean:.3e} within={mel_ok}, {solve_ms:.1f} ms "
+        f"({'; '.join(f'rank {r}: {s[0]:.1f} ms, peak {s[2] / 2**30:.2f} GiB' for r, s in enumerate(stats))}) ({smi})")
+    if not (est_ok and mel_ok and local[0] == 256):
+        fail("the tensor-parallel estimator does not agree with one device")
+    try:
+        serve.main(["--random-init", "--sp-devices", "2", "--port", "0"])
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        fail("cli.serve --sp-devices 2 was not refused on a one-card machine")
+    log(f"13c cli.serve --sp-devices 2 on one card: refused ({msg!r})")
+    if msg != "--sp-devices 2 but only 1 device(s) visible":
+        fail("cli.serve --sp-devices 2 was refused with another message")
+
+
+def phase_multi_device(params_tts, params_hift, smi):
+    """Phase 13: 13a DDP (cli.train children at world 1 over NCCL and world
+    2 over Gloo, started first; the step against one process), 13b SP long
+    form, 13c TP and the engine; returns the launches of every rank."""
+    import dataclasses
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.dist.tp import tp_cfm_cfg
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+
+    tmp = tempfile.mkdtemp(prefix="phase13-")
+    for sub in ("one", "two"):
+        os.makedirs(os.path.join(tmp, sub))
+    procs_one = _train_children(os.path.join(tmp, "one"), 1, None, "cuda")
+    procs_two = _train_children(os.path.join(tmp, "two"), 2, "gloo", "cuda:0")
+    try:
+        counts = phase_ddp_step(smi)
+    except BaseException:
+        for p, out in procs_one + procs_two:
+            p.kill()
+            p.wait()
+            out.close()
+        raise
+    ddp_cli = phase_ddp_cli(tmp, procs_one, procs_two)
+    counts = {k: counts[k] + ddp_cli[k] for k in counts}
+    cfg = JyutVoiceConfig()
+    synth = Synthesizer(cfg, params_tts, params_hift, device="cuda")
+    scores_cfg = dataclasses.replace(cfg, tts=dataclasses.replace(cfg.tts, cfm=tp_cfm_cfg(
+        cfg.tts.cfm)))
+    scores = Synthesizer(scores_cfg, params_tts, params_hift, device="cuda")
+    sp_counts = phase_sp(synth, scores, smi)
+    del scores
+    phase_tp(synth, smi)
+    return {k: counts[k] + sp_counts[k] for k in kernels.LAUNCHES}
+
+
 def timed(name, fn, *args, **kw):
     t = time.perf_counter()
     out = fn(*args, **kw)
@@ -3686,6 +4088,9 @@ def main():
     sx_counts, sx_flash_err, sx_stage_err, sx_fields, sx_flash, sx_stage = timed(
         "12 serving export", phase_serving_export, params_tts, params_hift, scale, smi)
     counts = {k: counts[k] + sx_counts[k] for k in counts}
+    torch.cuda.empty_cache()
+    md_counts = timed("13 multi-device", phase_multi_device, params_tts, params_hift, smi)
+    counts = {k: counts[k] + md_counts[k] for k in counts}
     flash["max_abs_err"] = max(flash["max_abs_err"], sx_flash_err)
     stage["max_abs_err"] = max(stage["max_abs_err"], sx_stage_err)
     for kernel, cases in ((flash, sx_flash), (stage, sx_stage)):

@@ -74,6 +74,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--warmup-long-prompts", action="store_true",
         help="with --warmup-long: also drive the cloning shapes (the solve with the "
         "512-frame prompt head per mel size); doubles the long-form warm-up")
+    ap.add_argument(
+        "--sp-devices", type=int, default=0,
+        help="shard long-form solves (text past the interactive buckets) over a "
+        "sequence-parallel mesh of this many local devices (dist/sp.py: one process "
+        "per device, this one the first): per-device attention memory and work drop "
+        "N-fold. 0 (default): long solves on one device")
+    ap.add_argument(
+        "--sp-attention", choices=("scores", "ring", "banded"), default="scores",
+        help="sequence-parallel attention: 'scores' (K/V gathered, per-device (2B,H,T/N,T) "
+        "scores), 'ring' (ring attention, per-device (T/N,T/N) tiles; for decodes past "
+        "the dense memory wall), 'banded' (the linear chunk band, approximate)")
     ap.add_argument("--verbose", action="store_true")
     return ap
 
@@ -87,6 +98,23 @@ def main(argv=None, cfg=None) -> None:
     args = build_parser().parse_args(argv)
     if not args.random_init and not (args.ckpt and args.hift):
         raise SystemExit("--ckpt and --hift are required (or pass --random-init)")
+
+    if args.sp_devices:
+        import torch
+
+        if args.sp_devices < 2:
+            # a one-device mesh would send long solves through the plain score
+            # path and lose the single-device kernel-3 route
+            raise SystemExit(
+                f"--sp-devices must be >= 2 (got {args.sp_devices}); "
+                f"omit it for single-chip long solves"
+            )
+        n_dev = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 0
+        if args.sp_devices > n_dev:
+            raise SystemExit(
+                f"--sp-devices {args.sp_devices} but only {n_dev} device(s) "
+                f"visible"
+            )
 
     from jyutvoice_tpu_torch.cli.infer import load_params
     from jyutvoice_tpu_torch.config import JyutVoiceConfig
@@ -120,6 +148,16 @@ def main(argv=None, cfg=None) -> None:
 
     # Synthesizer turns TF32 off on the GPU (parity with the f32 reference)
     synth = Synthesizer(cfg, params_tts, params_hift, device=args.device)
+    sp_mesh = None
+    if args.sp_devices:
+        from jyutvoice_tpu_torch.dist.sp import make_sp_mesh
+
+        # one rank per device, from the synthesizer's on: it is rank 0
+        n_dev, first = torch.cuda.device_count(), synth.device.index or 0
+        sp_mesh = make_sp_mesh(args.sp_devices, devices=[
+            f"cuda:{(first + i) % n_dev}" for i in range(args.sp_devices)])
+        log.info("long-form solves sequence-parallel over %d devices (%s)",
+                 args.sp_devices, args.sp_attention)
     if args.warmup:
         sizes = [1]
         while sizes[-1] < min(args.max_batch, 8):  # the engine splits past 8
@@ -139,8 +177,10 @@ def main(argv=None, cfg=None) -> None:
             pcm16=True,  # the engine serves PCM16
             log_fn=lambda m: log.info("%s", m),
             with_prompt=args.warmup_long_prompts,
-            # the engine's long route runs synthesize_long with --long-attention
-            attention=args.long_attention,
+            # warm the solves the engine runs: sharded ones on the mesh, else
+            # synthesize_long with --long-attention
+            mesh=sp_mesh, sp_attention=args.sp_attention,
+            attention=args.long_attention if sp_mesh is None else "auto",
         )
         log.info("warmup-long: %d shapes in %.1f s", n, time.perf_counter() - t0)
     server = TTSServer(
@@ -149,7 +189,8 @@ def main(argv=None, cfg=None) -> None:
         length_scale=args.length_scale, streaming=args.streaming,
         max_streams=args.max_streams, chunk_frames=args.chunk_frames,
         stream_prompt_frames=args.stream_prompt_frames, verbose=args.verbose,
-        prompt_extractor=extractor, long_attention=args.long_attention,
+        prompt_extractor=extractor, sp_mesh=sp_mesh, sp_attention=args.sp_attention,
+        long_attention=args.long_attention,
     )
     try:
         if args.warmup and args.streaming:
@@ -171,6 +212,8 @@ def main(argv=None, cfg=None) -> None:
         log.info("shutdown signal received: draining")
     finally:
         server.close()
+        if sp_mesh is not None:
+            sp_mesh.close()
 
 
 if __name__ == "__main__":

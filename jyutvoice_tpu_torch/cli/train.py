@@ -22,11 +22,25 @@ the run at the next step boundary and save a checkpoint; --resume continues
 from the latest checkpoint at the same batch of the same epoch with the same
 generator state, so an interrupted and resumed run takes the same steps as
 an uninterrupted one. Runs on the GPU unless --device cpu is given.
+
+Data parallel under torchrun, one rank per device:
+  torchrun --nproc-per-node 4 -m jyutvoice_tpu_torch.cli.train --dataset prepared
+Each rank binds cuda:LOCAL_RANK (an explicit --device cuda:N is kept, so two
+ranks may share a card, with --dist-backend gloo: NCCL refuses two ranks on
+one GPU). Every rank reads the same global batches and trains its own rows
+of each (`train/step.py`, DistributedDataParallel over the trainable half);
+a tail batch is padded to the full batch, rounded up to the world size, by
+repeating its row 0. A validation batch whose rows do not split over the
+ranks is evaluated whole on every rank. Rank 0 alone logs, writes
+checkpoints and makes the validation sample; --resume restores into every
+rank. --report PATH writes each rank's summary as JSON ("{rank}" in PATH
+is replaced by the rank): its steps, last metrics and kernel launches.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import signal
 import threading
@@ -118,6 +132,32 @@ def _log_val_sample(model, dm, tb, step):
     return out
 
 
+def pad_tail(batch, batch_size: int, world: int):
+    """A batch of b rows padded up to max(batch_size, b), rounded up to the
+    world size, by repeating row 0 (the JAX package's tail padding); as it
+    is when that adds nothing."""
+    import numpy as np
+
+    b = batch["x"].shape[0]
+    target = max(batch_size, b)
+    target += (-target) % world
+    if target == b:
+        return batch
+    return {k: np.concatenate([np.asarray(v)] + [np.asarray(v)[:1]] * (target - b), axis=0)
+            for k, v in batch.items()}
+
+
+def _stop_everywhere(mesh, device) -> bool:
+    """Whether any rank was asked to stop, agreed by every rank."""
+    import torch
+
+    stop = _STOP.is_set()
+    if mesh is None:
+        return stop
+    flag = torch.tensor([float(stop)], device=device)
+    return bool(mesh.comm().all_reduce(flag)[0] > 0)
+
+
 def main(argv=None, cfg=None):
     parser = argparse.ArgumentParser(description="JyutVoice training (PyTorch port)")
     parser.add_argument("--dataset", default=None,
@@ -145,16 +185,52 @@ def main(argv=None, cfg=None):
     parser.add_argument("--validate-only", action="store_true",
                         help="run one eval-mode validation pass and exit")
     parser.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="process-group backend under torchrun (default: nccl on "
+                             "cuda, gloo on cpu)")
+    parser.add_argument("--report", default=None,
+                        help="write this rank's summary as JSON ({rank} -> the rank)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
+    import torch
+
+    from jyutvoice_tpu_torch.dist.multihost import init_distributed, rank_device
+    from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
+
+    device = rank_device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda but no CUDA device is available; "
+                               "pass --device cpu to train on the CPU")
+        disable_tf32()
+    distributed = init_distributed(device=device, backend=args.dist_backend)
+    rank = torch.distributed.get_rank() if distributed else 0
+    level = log.level
+    try:
+        out = _run(args, cfg, device, distributed)
+    finally:
+        log.setLevel(level)
+        if distributed:
+            torch.distributed.destroy_process_group()
+    if args.report:
+        from jyutvoice_tpu_torch import kernels
+
+        report = {**({"val": out} if args.validate_only else out), "rank": rank,
+                  "launches": dict(kernels.LAUNCHES)}
+        with open(args.report.replace("{rank}", str(rank)), "w") as f:
+            json.dump(report, f)
+    return out
+
+
+def _run(args, cfg, device, distributed):
     import dataclasses
 
     import torch
 
     from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.dist.mesh import make_mesh
     from jyutvoice_tpu_torch.models.tts import TTS
-    from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
     from jyutvoice_tpu_torch.train import checkpoints as ckpt
     from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
     from jyutvoice_tpu_torch.train.prefetch import prefetch
@@ -164,12 +240,14 @@ def main(argv=None, cfg=None):
     from jyutvoice_tpu_torch.weights import random_init
     from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("--device cuda but no CUDA device is available; "
-                               "pass --device cpu to train on the CPU")
-        disable_tf32()
+    # the job's data mesh; None in a single-process run
+    mesh = make_mesh() if distributed else None
+    world = mesh.size if mesh else 1
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        log.setLevel(logging.WARNING)  # rank 0 alone logs
+    else:
+        log.info("data mesh: %d rank(s)", world)
     cfg = cfg or JyutVoiceConfig()
     tr = cfg.train
     if args.epochs:
@@ -198,7 +276,8 @@ def main(argv=None, cfg=None):
     else:
         dm = TextMelDataModule(args.dataset, dm_cfg)
 
-    trainer = Trainer(model, tr, torch.Generator(device=device).manual_seed(args.seed))
+    trainer = Trainer(model, tr, torch.Generator(device=device).manual_seed(args.seed),
+                      mesh=mesh)
     log.info("trainable parameters: %d tensors, %d values", len(trainer.params),
              sum(p.numel() for p in trainer.params))
     start_epoch, start_batch = 0, 0
@@ -222,8 +301,10 @@ def main(argv=None, cfg=None):
     def snapshot(epoch, batch):
         return {"trainer": trainer.state_dict(), "epoch": epoch, "batch": batch}
 
-    log_param_counts(params)
-    tb = TrainLogger(args.tb_dir, wandb_project=args.wandb_project)
+    if lead:
+        log_param_counts(params)
+    tb = TrainLogger(args.tb_dir if lead else None,
+                     wandb_project=args.wandb_project if lead else None)
     _STOP.clear()
     previous = _install_stop_handlers()
     metrics, epoch, pos = None, start_epoch, start_batch
@@ -236,6 +317,8 @@ def main(argv=None, cfg=None):
             for pos, batch in enumerate(prefetch(dm.train_batches(epoch)), start=1):
                 if pos <= skip:
                     continue  # trained before the checkpoint this run resumed from
+                if world > 1:
+                    batch = pad_tail(batch, tr.batch_size, world)
                 metrics = trainer.step(batch)
                 step = trainer.step_count
                 if step % args.log_every == 0:
@@ -246,11 +329,12 @@ def main(argv=None, cfg=None):
                              m["prior_loss"], m["diff_loss"], m["grad_norm"], m["lr"],
                              args.log_every / max(time.time() - t_start, 1e-9))
                     t_start = time.time()
-                if step % args.save_every == 0:
+                if lead and step % args.save_every == 0:
                     ckpt.save(args.ckpt_dir, step, snapshot(epoch, pos))
-                if (args.max_steps and step >= args.max_steps) or _STOP.is_set():
+                stop = _stop_everywhere(mesh, device)
+                if (args.max_steps and step >= args.max_steps) or stop:
                     stopped = True
-                    if _STOP.is_set():
+                    if stop:
                         log.warning("stop requested: stopping at step %d (resumable "
                                     "checkpoint follows)", step)
                     break
@@ -261,17 +345,20 @@ def main(argv=None, cfg=None):
                 tb.scalars("val", avg, trainer.step_count)
                 log.info("epoch %d | val_loss %.4f (dur %.4f prior %.4f diff %.4f)", epoch,
                          avg["loss"], avg["dur_loss"], avg["prior_loss"], avg["diff_loss"])
-                ckpt.save_best(args.ckpt_dir, trainer.step_count, snapshot(epoch + 1, 0),
-                               val_loss=avg["loss"])
+                if lead:
+                    ckpt.save_best(args.ckpt_dir, trainer.step_count, snapshot(epoch + 1, 0),
+                                   val_loss=avg["loss"])
             # the validation sample's images (never fatal)
             try:
-                _log_val_sample(model, dm, tb, trainer.step_count)
+                if lead:
+                    _log_val_sample(model, dm, tb, trainer.step_count)
             except Exception as e:  # noqa: BLE001
                 log.warning("val sample logging failed: %s", e)
         # an interrupted run resumes after its last batch; a finished one
         # resumes past its last epoch (and so does nothing more)
         final = snapshot(epoch, pos) if stopped else snapshot(tr.max_epochs, 0)
-        ckpt.save(args.ckpt_dir, trainer.step_count, final)
+        if lead:
+            ckpt.save(args.ckpt_dir, trainer.step_count, final)
         log.info("done at step %d", trainer.step_count)
     finally:
         # flushes the event file's tail (SummaryWriter flushes every 2 min)
@@ -279,7 +366,7 @@ def main(argv=None, cfg=None):
         if previous is not None:
             for sig, handler in previous.items():
                 signal.signal(sig, handler)
-    return {"step": trainer.step_count,
+    return {"step": trainer.step_count, "world": world,
             "metrics": {k: float(v) for k, v in (metrics or {}).items()}}
 
 

@@ -17,6 +17,7 @@ import torch
 
 from jyutvoice_tpu_torch.config import CFMConfig
 from jyutvoice_tpu_torch.models.estimator import Estimator
+from jyutvoice_tpu_torch.nn import core
 
 Tensor = torch.Tensor
 
@@ -83,13 +84,13 @@ def cfm_loss(
     b = x1.shape[0]
     dev, dt = x1.device, x1.dtype
     if t_override is None:
-        t = torch.rand((b, 1, 1), generator=generator, device=dev, dtype=dt)
+        t = core.draw((b, 1, 1), generator, dev, dt)
         if cfg.t_scheduler == "cosine":
             t = 1.0 - torch.cos(t * 0.5 * math.pi)
     else:
         t = t_override.reshape(b, 1, 1).to(dt)
     if z_override is None:
-        z = torch.randn(x1.shape, generator=generator, device=dev, dtype=dt)
+        z = core.draw(x1.shape, generator, dev, dt, normal=True)
     else:
         z = z_override.to(dt)
 
@@ -98,7 +99,7 @@ def cfm_loss(
 
     if cfg.training_cfg_rate > 0:
         if cfg_keep_override is None:
-            draw = torch.rand((b,), generator=generator, device=dev)
+            draw = core.draw((b,), generator, dev)
             keep = (draw > cfg.training_cfg_rate).to(dt)
         else:
             keep = cfg_keep_override.to(dt)
@@ -108,5 +109,5 @@ def cfm_loss(
 
     pred = estimator(y, mask, mu, t[:, 0, 0], spks, cond, streaming, training=True)
     num = torch.sum(torch.square((pred - u) * mask))
-    den = torch.sum(mask) * u.shape[-1]
+    den = core.batch_total(torch.sum(mask)) * u.shape[-1]
     return num / den, y

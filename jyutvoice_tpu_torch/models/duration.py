@@ -52,5 +52,6 @@ class DurationPredictor(nn.Module):
 
 
 def duration_loss(logw: Tensor, logw_target: Tensor, lengths: Tensor) -> Tensor:
-    """Log-domain MSE, normalised by the total text length."""
-    return torch.sum(torch.square(logw - logw_target)) / torch.sum(lengths)
+    """Log-domain MSE, normalised by the total text length (of the global
+    batch in a data-parallel step: `core.batch_total`)."""
+    return torch.sum(torch.square(logw - logw_target)) / core.batch_total(torch.sum(lengths))

@@ -30,6 +30,13 @@ gate kept. So a training call takes kernel 3 with its backward (kernels 4
 and 5) on CUDA tensors at 512-aligned T >= 2048, and otherwise "plain"
 attention (`sdpa` with the key-padding bias, f32), the counterpart of the
 JAX package's XLA `plain_mha`, which it trains with at those lengths.
+
+Sequence parallel (`dist/sp.py`): inside a sharded solve the call sees this
+rank's T/n frames and `current_shard()` names its place; the causal
+convolutions take the frames before the shard from the left neighbours
+(`causal_conv`), the lengths and key mask are the whole sequence's, and the
+"plain", "banded" and "ring" routes read the other shards' keys as each
+needs them (`attention_ctx`).
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import torch
 from torch import nn
 
 from jyutvoice_tpu_torch.config import EstimatorConfig
+from jyutvoice_tpu_torch.dist.ring import get_ring_context
+from jyutvoice_tpu_torch.dist.sp import current_shard
 from jyutvoice_tpu_torch.nn import core
 from jyutvoice_tpu_torch.nn.attention import PlainMHA
 
@@ -87,8 +96,9 @@ def attention_route(
     on_cuda: bool = True, training: bool = False,
 ) -> str:
     """The attention backend of one estimator call: "banded", "flash_stock"
-    (kernel 3), "flash" (kernel 1) or "plain" (in training, and for the
-    config's attention_backend="xla_scores" at inference).
+    (kernel 3), "flash" (kernel 1), "ring" (the config's
+    attention_backend="ring", set by `dist/sp.py::sp_cfm_solve`) or "plain"
+    (in training, and for attention_backend="xla_scores" at inference).
 
     `attention` is the per-call long-form mode: "banded" acts as the
     config's attention_backend="banded", "exact" as banded_long_threshold=0
@@ -109,6 +119,13 @@ def attention_route(
         return "plain"
     if attention == "exact":
         cfg = dataclasses.replace(cfg, banded_long_threshold=0)
+    if cfg.attention_backend == "ring":
+        if chunk != 0:
+            raise ValueError(
+                "attention='ring' does not support streaming chunk masks; "
+                "use attention='scores' for the chunk-masked solve"
+            )
+        return "ring"
     if attention == "banded" or cfg.attention_backend == "banded":
         if chunk != 0:
             raise ValueError("the banded backend is for full (non-streaming) attention")
@@ -125,12 +142,58 @@ def attention_route(
     return "flash"
 
 
-def with_attention_backend(est: "Estimator", backend: str) -> "Estimator":
-    """A view of `est` whose config names another attention backend: it
-    shares every parameter and buffer with `est`."""
+def with_config(est: "Estimator", cfg: EstimatorConfig) -> "Estimator":
+    """A view of `est` that runs with another config of the same shapes (an
+    attention backend, a band geometry): it shares every parameter and
+    buffer with `est`."""
     view = copy.copy(est)
-    view.cfg = dataclasses.replace(est.cfg, attention_backend=backend)
+    view.cfg = cfg
     return view
+
+
+def with_attention_backend(est: "Estimator", backend: str) -> "Estimator":
+    """A view of `est` whose config names another attention backend."""
+    return with_config(est, dataclasses.replace(est.cfg, attention_backend=backend))
+
+
+def causal_conv(conv, x: Tensor) -> Tensor:
+    """A causal convolution of (B, T, C) frames: zeros before the first
+    frame on one device, the frames of the ranks to the left inside a
+    sequence-parallel solve."""
+    shard = current_shard()
+    if shard is None:
+        return conv(x, padding="causal")
+    k = conv.weight.shape[-1]
+    return conv(torch.cat([shard.left_halo(x, k - 1), x], dim=1), padding="valid")
+
+
+def attention_ctx(cfg: EstimatorConfig, backend: str, mask: Tensor, chunk: int) -> dict:
+    """The per-call attention arguments of `PlainMHA.forward` for `backend`,
+    from the (B, T, 1) mask: lengths, kernel 1's chunk rule, the band, the
+    plain route's bias; inside a sequence-parallel solve also the gathers
+    that reach the other shards' keys."""
+    shard = current_shard()
+    lengths = mask[:, :, 0].sum(dim=1)
+    if shard is not None:
+        lengths = shard.sum(lengths)
+    ctx = {"lengths": lengths.to(torch.int32), "n_heads": cfg.num_heads, "backend": backend}
+    if backend == "flash":
+        ctx.update(chunk_size=chunk, num_left_chunks=cfg.num_decoding_left_chunks)
+    elif backend == "banded":
+        ctx["band"] = (cfg.banded_chunk, cfg.banded_left, cfg.banded_right)
+        ctx["shard"] = shard
+    elif backend == "plain":
+        if shard is None:
+            keep = core.chunk_attn_mask(mask[:, :, 0] > 0, chunk, cfg.num_decoding_left_chunks)
+        else:
+            keep = shard.query_rows(core.chunk_attn_mask(
+                shard.key_mask(mask[:, :, 0]), chunk, cfg.num_decoding_left_chunks))
+            ctx["gather_kv"] = shard.gather_kv
+        ctx["bias"] = core.mask_to_bias(keep)[:, None]
+    elif backend == "ring":
+        ring_mesh, ring_axis = get_ring_context()
+        ctx["ring"] = (ring_mesh.comm(ring_axis), mask[:, :, 0])
+    return ctx
 
 
 class TimeMLP(nn.Module):
@@ -152,7 +215,7 @@ class CausalBlock(nn.Module):
         self.norm = core.LayerNorm(dim_out)
 
     def forward(self, x: Tensor, mask: Tensor) -> Tensor:
-        h = self.conv(x * mask, padding="causal")
+        h = causal_conv(self.conv, x * mask)
         return core.mish(self.norm(h)) * mask
 
 
@@ -235,27 +298,18 @@ class Estimator(nn.Module):
         spks_t = spks[:, None, :].to(x.dtype).expand(b, seq, spks.shape[-1])
         h = torch.cat([x, mu, spks_t, cond], dim=-1)
         chunk = cfg.static_chunk_size if streaming else 0
-        backend = attention_route(cfg, seq, chunk, attention, x.is_cuda, training)
-        attn_ctx = {
-            "lengths": mask[:, :, 0].sum(dim=1).to(torch.int32),
-            "n_heads": cfg.num_heads,
-            "backend": backend,
-        }
-        if backend == "flash":
-            attn_ctx.update(chunk_size=chunk, num_left_chunks=cfg.num_decoding_left_chunks)
-        elif backend == "banded":
-            attn_ctx["band"] = (cfg.banded_chunk, cfg.banded_left, cfg.banded_right)
-        elif backend == "plain":
-            keep = core.chunk_attn_mask(mask[:, :, 0] > 0, chunk, cfg.num_decoding_left_chunks)
-            attn_ctx["bias"] = core.mask_to_bias(keep)[:, None]
+        shard = current_shard()
+        t_all = seq if shard is None else shard.t
+        backend = attention_route(cfg, t_all, chunk, attention, x.is_cuda, training)
+        attn_ctx = attention_ctx(cfg, backend, mask, chunk)
         h = self.down(h, mask, t_emb, attn_ctx)
         skip = h
-        h = self.down_conv(h * mask, padding="causal")
+        h = causal_conv(self.down_conv, h * mask)
         for mid in self.mid:
             h = mid(h, mask, t_emb, attn_ctx)
         h = torch.cat([h, skip], dim=-1)
         h = self.up(h, mask, t_emb, attn_ctx)
-        h = self.up_conv(h * mask, padding="causal")
+        h = causal_conv(self.up_conv, h * mask)
         h = self.final_block(h, mask)
         out = self.final_proj(h * mask, padding="valid")
         return out * mask

@@ -211,8 +211,8 @@ def compute_losses(
     dur_loss = duration_loss(logw, logw_target, x_lengths)
 
     # prefix teacher-forcing of conds
-    use_cond = torch.rand((b,), generator=generator, device=y_mel.device) >= cond_prob
-    frac = torch.rand((b,), generator=generator, device=y_mel.device)
+    use_cond = core.draw((b,), generator, y_mel.device) >= cond_prob
+    frac = core.draw((b,), generator, y_mel.device)
     cond_len = (frac * cond_max_ratio * y_lengths.float()).to(torch.int32)
     cond_len = torch.where(use_cond, cond_len, 0)
     pos = torch.arange(t_mel, device=y_mel.device)
@@ -228,7 +228,7 @@ def compute_losses(
     prior_loss = torch.sum(
         0.5 * (torch.square(decoder_h - mu_y) + math.log(2 * math.pi)) * y_mask[..., None]
     )
-    prior_loss = prior_loss / (torch.sum(y_mask[..., None]) * n_feats)
+    prior_loss = prior_loss / (core.batch_total(torch.sum(y_mask[..., None])) * n_feats)
 
     total = dur_loss + prior_loss + diff_loss_weight * diff_loss
     return TrainLosses(dur_loss, prior_loss, diff_loss, total, attn)

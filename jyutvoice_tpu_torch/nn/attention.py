@@ -111,7 +111,7 @@ class RopeMHA(nn.Module):
 
 def banded_sdpa(
     q: Tensor, k: Tensor, v: Tensor, lengths: Tensor, *, chunk: int, left: int,
-    right: int = 0,
+    right: int = 0, halo: bool = False, q_offset: int = 0,
 ) -> Tensor:
     """Banded (chunk-local) attention, linear in T. q/k/v (B, H, T, D);
     lengths (B,) valid key lengths. Returns (B, H, T, D).
@@ -123,7 +123,12 @@ def banded_sdpa(
     made. Key validity comes from positions (window slots before the
     sequence or at/after the length get -1e10). A query chunk with no valid
     key comes out as a uniform average; the caller's mask zeroes it. Scores
-    stay f32 on every device."""
+    stay f32 on every device.
+
+    Sequence parallel: q holds the frames from global position q_offset
+    (a multiple of chunk) and halo=True means k and v already carry the
+    left * chunk frames before them and right * chunk after (zeros outside
+    the sequence) in place of the zero padding."""
     b, h, t, d = q.shape
     if t % chunk:
         raise ValueError(f"banded_sdpa: T={t} is not a multiple of chunk {chunk}")
@@ -131,9 +136,12 @@ def banded_sdpa(
     n_slabs = left + 1 + right
     w = n_slabs * chunk
     scale = 1.0 / math.sqrt(d)
-    pad = (0, 0, left * chunk, right * chunk)
-    kp = torch.nn.functional.pad(k, pad)
-    vp = torch.nn.functional.pad(v, pad)
+    if halo:
+        kp, vp = k, v
+    else:
+        pad = (0, 0, left * chunk, right * chunk)
+        kp = torch.nn.functional.pad(k, pad)
+        vp = torch.nn.functional.pad(v, pad)
     qc = q.reshape(b, h, nc, chunk, d)
 
     def slab(x: Tensor, j: int) -> Tensor:
@@ -145,7 +153,7 @@ def banded_sdpa(
     ) * scale
     # absolute key position of window slot (c, wi) = c*chunk - left*chunk + wi
     pos = (
-        torch.arange(nc, device=q.device)[:, None] * chunk - left * chunk
+        torch.arange(nc, device=q.device)[:, None] * chunk + (q_offset - left * chunk)
         + torch.arange(w, device=q.device)[None, :]
     )
     keep = (pos >= 0)[None] & (pos[None] < lengths.to(pos.dtype)[:, None, None])
@@ -160,13 +168,21 @@ def banded_sdpa(
 
 def banded_mha(
     attn: "PlainMHA", x: Tensor, lengths: Tensor, n_heads: int, *, chunk: int,
-    left: int, right: int = 0,
+    left: int, right: int = 0, shard=None,
 ) -> Tensor:
-    """`PlainMHA`'s projections around `banded_sdpa`. x (B, T, C)."""
+    """`PlainMHA`'s projections around `banded_sdpa`. x (B, T, C); shard:
+    this rank's `dist/sp.py::SeqShard` inside a sequence-parallel solve,
+    whose neighbours supply the band's keys past the shard's edges."""
     q, k, v = attn.project(x, n_heads)
+    offset = 0
+    if shard is not None:
+        kv = torch.stack([k, v])
+        kv = torch.cat([shard.left_halo(kv, left * chunk, dim=2), kv,
+                        shard.right_halo(kv, right * chunk, dim=2)], dim=2)
+        k, v, offset = kv[0], kv[1], shard.offset
     out = banded_sdpa(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths,
-        chunk=chunk, left=left, right=right,
+        chunk=chunk, left=left, right=right, halo=shard is not None, q_offset=offset,
     )
     return attn.o(merge_heads(out))
 
@@ -204,19 +220,33 @@ class PlainMHA(nn.Module):
     def forward(
         self, x: Tensor, lengths: Tensor, n_heads: int, backend: str = "flash",
         chunk_size: int = 0, num_left_chunks: int = -1, band=None,
-        bias: Optional[Tensor] = None,
+        bias: Optional[Tensor] = None, shard=None, gather_kv=None, ring=None,
     ) -> Tensor:
         """x (B, T, C); lengths (B,) int32 valid key lengths; chunk_size and
         num_left_chunks are kernel 1's streaming rule, band the banded
         backend's (chunk, left, right), bias the plain backend's additive
-        (B, 1, T, T) mask bias."""
+        (B, 1, T, T) mask bias. Inside a sequence-parallel solve
+        (`models/estimator.py::attention_ctx`): shard feeds the band its
+        neighbours' keys, gather_kv gathers K and V along T for the plain
+        route (bias (B, 1, T/n, T)), and ring is the "ring" backend's
+        (collectives, (B, T/n) key mask)."""
         if backend == "banded":
             chunk, left, right = band
-            return banded_mha(self, x, lengths, n_heads, chunk=chunk, left=left, right=right)
+            return banded_mha(self, x, lengths, n_heads, chunk=chunk, left=left, right=right,
+                              shard=shard)
         b, t, _ = x.shape
         q, k, v = self.project(x, n_heads)
         scale = 1.0 / math.sqrt(q.shape[-1])
+        if backend == "ring":
+            from jyutvoice_tpu_torch.dist.ring import ring_attention_local
+
+            comm, kv_valid = ring
+            out = ring_attention_local(q.transpose(1, 2), k.transpose(1, 2),
+                                       v.transpose(1, 2), kv_valid, comm, scale)
+            return self.o(merge_heads(out))
         if backend == "plain":
+            if gather_kv is not None:
+                k, v = gather_kv(k, v)
             out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias,
                        scale=scale)
             return self.o(merge_heads(out))

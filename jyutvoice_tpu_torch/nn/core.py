@@ -10,7 +10,9 @@ same math; here each op is one torch call.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -238,16 +240,68 @@ def leaky_relu(x: Tensor, slope: float) -> Tensor:
     return torch.where(x >= 0, x, x * slope)
 
 
+# ---------------------------------------------------------------------------
+# Random draws and loss totals of a data-parallel training step
+# ---------------------------------------------------------------------------
+
+
+class BatchRows:
+    """This rank's rows [start, start + rows) of a global batch of `total`
+    rows in a data-parallel step (`train/step.py`): random draws are made at
+    the global batch's shape and cut to these rows, and a loss's
+    denominator is summed over the ranks by `reduce`, so the ranks together
+    compute what one process computes on the whole batch."""
+
+    def __init__(self, start: int, total: int, reduce: Callable[[Tensor], Tensor]):
+        self.start, self.total, self.reduce = start, total, reduce
+
+
+_ROWS = threading.local()
+
+
+@contextlib.contextmanager
+def batch_rows(rows: Optional[BatchRows]):
+    """Run the enclosed loss computation as `rows` of a global batch (None:
+    the whole batch, one process)."""
+    prev = getattr(_ROWS, "rows", None)
+    _ROWS.rows = rows
+    try:
+        yield
+    finally:
+        _ROWS.rows = prev
+
+
+def draw(shape, generator: Optional[torch.Generator], device, dtype=torch.float32,
+         normal: bool = False) -> Tensor:
+    """torch.rand (normal=False) or torch.randn of `shape` from `generator`,
+    whose leading dim is the batch: inside `batch_rows`, drawn at the global
+    batch's rows and cut to this rank's."""
+    fn = torch.randn if normal else torch.rand
+    rows = getattr(_ROWS, "rows", None)
+    if rows is None:
+        return fn(tuple(shape), generator=generator, device=device, dtype=dtype)
+    full = fn((rows.total, *shape[1:]), generator=generator, device=device, dtype=dtype)
+    return full[rows.start: rows.start + shape[0]]
+
+
+def batch_total(x: Tensor) -> Tensor:
+    """A loss denominator (a sum over the batch, no gradient): inside
+    `batch_rows`, summed over the ranks."""
+    rows = getattr(_ROWS, "rows", None)
+    return x if rows is None else rows.reduce(x.detach().clone())
+
+
 def dropout(
     x: Tensor, rate: float, generator: Optional[torch.Generator], deterministic: bool
 ) -> Tensor:
     """Inverted dropout: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate). The identity when deterministic,
     at rate 0 or without a generator. Draws come from `generator` only (its
-    device must be x's), never from the global RNG."""
+    device must be x's), never from the global RNG; x's leading dim is the
+    batch (`draw`)."""
     if deterministic or rate == 0.0 or generator is None:
         return x
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    u = draw(x.shape, generator, x.device, x.dtype)
     return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0)
 
 

@@ -325,12 +325,15 @@ class TTSServer:
         verbose: bool = False,
         prompt_extractor=None,
         prompt_cache_size: int = 16,
+        sp_mesh=None,
+        sp_attention: str = "scores",
         long_attention: str = "auto",
     ):
         self.engine = ServingEngine(
             synthesizer, max_batch=max_batch, max_wait_ms=max_wait_ms,
             n_timesteps=n_timesteps, length_scale=length_scale, pcm16=True,
-            long_attention=long_attention,
+            # a multi-device host shards each long-form solve over the mesh
+            sp_mesh=sp_mesh, sp_attention=sp_attention, long_attention=long_attention,
         )
         self.lane = None
         self._httpd = None

@@ -14,15 +14,15 @@ The counterpart of the JAX package's `pipeline/server.py` on one device:
     read back after that; group N's duration read-back waits for group
     N-1's device work (one stream), so their device work does not overlap.
     Long-form requests (text past INTERACTIVE_TEXT_CAP, or items past the
-    15000-frame bucket) go through `synthesize_long` one at a time.
+    15000-frame bucket) go through `synthesize_long` one at a time,
+    sharded over a sequence-parallel mesh when the engine has one
+    (`sp_mesh`, `dist/sp.py`).
   * `StreamingLane`: live streams multiplexed over one
     `MultiStreamSynthesizer`, one dispatch per tick for every stream;
     submit() returns a handle that yields waveform chunks.
 
 Both workers are threads of their own. Inference mode and the current CUDA
 device are per thread in PyTorch, so each worker enters them itself.
-Not ported: the JAX engine's sp_mesh / sp_attention (sequence-parallel
-long solves over several devices).
 """
 
 from __future__ import annotations
@@ -101,7 +101,11 @@ class ServingEngine:
     "exact") of the requests sent through synthesize_long. A long-form
     request holds the device for its whole solve, so it delays requests
     that arrive with it; serve such traffic from a separate engine, or
-    stream it through a StreamingLane.
+    stream it through a StreamingLane. sp_mesh (`dist/sp.py::make_sp_mesh`,
+    rank 0 on the synthesizer's device) shards each long solve over the
+    mesh's "seq" ranks with sp_attention ("scores", "ring" or "banded"),
+    shortening the long request and the window it holds the device;
+    long_attention is then not used (`cli.serve --sp-devices N`).
     """
 
     def __init__(
@@ -114,11 +118,15 @@ class ServingEngine:
         return_mel: bool = False,
         pcm16: bool = False,
         split_dispatch_at: int = 8,
+        sp_mesh=None,
+        sp_attention: str = "scores",
         long_attention: str = "auto",
     ):
         self.synth = synthesizer
         self.max_batch = max_batch
         self.split_dispatch_at = split_dispatch_at
+        self.sp_mesh = sp_mesh
+        self.sp_attention = sp_attention
         self.long_attention = long_attention
         self.max_wait_s = max_wait_ms / 1000.0
         self.n_timesteps = n_timesteps
@@ -336,7 +344,9 @@ class ServingEngine:
             res = self.synth.synthesize_long(
                 it["text"], lang=it.get("lang", "yue"), phone=it.get("phone"),
                 spk_embed=it.get("spk_embed"), prompt_feat=it.get("prompt_feat"),
-                prompt_h=it.get("prompt_h"), attention=self.long_attention,
+                prompt_h=it.get("prompt_h"), mesh=self.sp_mesh,
+                sp_attention=self.sp_attention,
+                attention=self.long_attention if self.sp_mesh is None else "auto",
                 n_timesteps=self.n_timesteps, length_scale=self.length_scale,
                 pcm16=self.pcm16, dequantize=False, return_mel=self.return_mel,
                 prepped=it["_prepped"],

@@ -17,7 +17,9 @@ then yields the waveform chunk by chunk (`pipeline/streaming.py`).
 `synthesize_batch_dispatch` runs the short path for several requests at
 once (the serving engine's path, `pipeline/server.py`): one duration pass,
 then the mel phase and the vocoder at a power-of-two batch, with the
-read-back left to the `finalize` it returns.
+read-back left to the `finalize` it returns. `synthesize_long(mesh=...)`
+and `warmup_long(mesh=...)` shard the long-form solve over a
+sequence-parallel mesh of ranks (`dist/sp.py`).
 """
 
 from __future__ import annotations
@@ -70,19 +72,37 @@ def long_frame_granule(n_seq: int) -> int:
     return math.lcm(32, n_seq) if n_seq > 1 else 32
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one ("cuda" is the current CUDA device)."""
+    def index(d):
+        return d.index if d.index is not None or d.type != "cuda" else torch.cuda.current_device()
+
+    return a.type == b.type and index(a) == index(b)
+
+
+def _seq_size(mesh) -> int:
+    from jyutvoice_tpu_torch.dist.sp import SEQ_AXIS
+
+    return mesh.axis_size(SEQ_AXIS)
+
+
 def long_form_shapes(
-    y_len: int, prompted: bool, attention: str = "auto", banded_chunk: int = 128
+    y_len: int, prompted: bool, attention: str = "auto", banded_chunk: int = 128,
+    n_seq: int = 1,
 ) -> Tuple[int, int]:
     """(prompt head, mel length) of the long-form solve, which runs at
-    t_total = head + mel frames, as the JAX package picks them on one device.
+    t_total = head + mel frames, as the JAX package picks them for a
+    sequence mesh of n_seq ranks (1: one device).
 
-    The mel length is y_len rounded up to the 32-frame granule, then past
-    1536 frames to a multiple of 512 (the stock-flash block); inside the
-    bucket table it is the bucket, except the 15000-frame cap, which is not
-    512-aligned and keeps the aligned length. attention="banded" rounds it up
-    to the banded chunk. A prompt takes a fixed 512-frame head."""
-    granule = long_frame_granule(1)
-    align = 512
+    The mel length is y_len rounded up to the frame granule
+    (`long_frame_granule(n_seq)`), then past 1536 frames to a multiple of
+    lcm(512, n_seq) (512 is the stock-flash block); inside the bucket table
+    it is the bucket, except a bucket the mesh cannot split and the
+    15000-frame cap, which is not 512-aligned: those keep the aligned
+    length. attention="banded" rounds it up to the banded chunk. A prompt
+    takes a fixed lcm(512, granule)-frame head."""
+    granule = long_frame_granule(n_seq)
+    align = 512 if n_seq == 1 else math.lcm(512, n_seq)
     want = -(-max(y_len, 1) // granule) * granule
     if want > 1536:
         want = -(-want // align) * align
@@ -166,6 +186,7 @@ class Synthesizer:
         self.hift = load_jax_params(hift_mod.HiFT(cfg.hift), params_hift).to(self.device).eval()
         self.noise = rand_noise(device=self.device)
         self._streams: dict = {}  # (chunk, prompt capacity, steps, masks) -> StreamingSynthesizer
+        self._sp: dict = {}  # (mesh, ...) -> the decoder on a mesh, its solvers
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -399,21 +420,32 @@ class Synthesizer:
         spk_embed: Optional[np.ndarray] = None,
         prompt_feat: Optional[np.ndarray] = None,  # (T_p, 80)
         prompt_h: Optional[np.ndarray] = None,  # (T_p, 80)
+        mesh=None,
         n_timesteps: int = 10,
         length_scale: float = 1.0,
+        sp_attention: str = "scores",
         attention: str = "auto",
         pcm16: bool = False,
         dequantize: bool = True,
         return_mel: bool = True,
         prepped=None,
     ) -> SynthesisResult:
-        """One-pass long-form synthesis on one device, past the bucket table.
+        """One-pass long-form synthesis past the bucket table, optionally
+        sequence-parallel.
 
-        attention: "auto" keeps the configured estimator backend (on CUDA:
-        banded past banded_long_threshold, kernel 3 for exact attention at
-        512-aligned T >= 2048 below it); "banded" forces the chunk-band at
-        any length; "exact" forces full attention (kernel 3 where the
-        stock-flash gate admits T).
+        attention (one device): "auto" keeps the configured estimator
+        backend (on CUDA: banded past banded_long_threshold, kernel 3 for
+        exact attention at 512-aligned T >= 2048 below it); "banded" forces
+        the chunk-band at any length; "exact" forces full attention (kernel
+        3 where the stock-flash gate admits T).
+
+        mesh (`dist/sp.py::make_sp_mesh`, rank 0 on this synthesizer's
+        device): the CFM solve shards the sequence over the mesh's "seq"
+        ranks, shapes rounded so that they split (`long_form_shapes`);
+        attention must stay "auto" and sp_attention picks the sharded
+        attention: "scores" (K/V gathered, per-rank scores (2B, H, T/n, T)),
+        "ring" (per-rank tile (2B, H, T/n, T/n)) or "banded" (the chunk band,
+        approximate). The text half and the vocoder run on this device.
 
         Voice cloning: the prompt pair grafts front-aligned into a fixed
         512-frame head (prompt_h into mu, prompt_feat into cond), so the
@@ -429,6 +461,12 @@ class Synthesizer:
                 f"unknown long-form attention {attention!r} "
                 "(use 'auto', 'banded' or 'exact')"
             )
+        if attention != "auto" and mesh is not None:
+            raise ValueError(
+                f"attention={attention!r} is the single-device long-form "
+                "control; sharded decodes pick sp_attention instead"
+            )
+        n_seq = 1 if mesh is None else _seq_size(mesh)
         if (prompt_feat is None) != (prompt_h is None):
             raise ValueError(PROMPT_PAIR_ERROR)
         p_len = 0
@@ -459,7 +497,7 @@ class Synthesizer:
         )
         p_head, t_mel = long_form_shapes(
             y_len, prompt_feat is not None, attention,
-            self.cfg.tts.cfm.estimator.banded_chunk,
+            self.cfg.tts.cfm.estimator.banded_chunk, n_seq,
         )
         t_total = p_head + t_mel
         t1 = time.perf_counter()
@@ -472,13 +510,15 @@ class Synthesizer:
         mu[0, p_len : p_len + y_len] = mu_y[:y_len]
         mask = (np.arange(t_total) < p_len + y_len).astype(np.float32)[None, :, None]
         dev = self.device
-        mel = cfm_forward(
-            self.tts.decoder, self.cfg.tts.cfm, torch.from_numpy(mu).to(dev),
-            torch.from_numpy(mask).to(dev),
-            torch.from_numpy(np.asarray(c, np.float32).reshape(1, -1)).to(dev),
-            torch.from_numpy(cond).to(dev), n_timesteps=n_timesteps,
-            rand_noise=rand_noise_extended(t_total, device=dev), attention=attention,
-        )
+        args = [torch.from_numpy(a).to(dev) for a in
+                (mu, mask, np.asarray(c, np.float32).reshape(1, -1), cond)]
+        noise = rand_noise_extended(t_total, device=dev)
+        if mesh is None:
+            mel = cfm_forward(self.tts.decoder, self.cfg.tts.cfm, *args,
+                              n_timesteps=n_timesteps, rand_noise=noise, attention=attention)
+        else:
+            run, dec = self._long_sp_fn(mesh, n_timesteps, sp_attention)
+            mel = run(dec, *args, noise[:, :t_total])
         if p_head:
             mel = mel[:, p_len : p_len + t_mel]
         self._sync()
@@ -714,6 +754,26 @@ class Synthesizer:
         self._sync()
         return count
 
+    def _long_sp_fn(self, mesh, n_timesteps: int, sp_attention: str):
+        """The sequence-parallel long-form solve on `mesh`, cached per (mesh,
+        steps, attention), and the decoder on the mesh, placed once per mesh
+        (shared by every step count and attention mode)."""
+        from jyutvoice_tpu_torch.dist.sp import shard_params, sp_cfm_solve
+
+        if not _same_device(mesh.device, self.device):
+            raise ValueError(
+                f"the mesh's rank 0 runs on {mesh.device}, this synthesizer on "
+                f"{self.device}: make the mesh with this device first"
+            )
+        dec_key = ("long_sp_dec", mesh)
+        if dec_key not in self._sp:
+            self._sp[dec_key] = shard_params(self.tts.decoder, mesh)
+        key = ("long_sp", mesh, n_timesteps, sp_attention)
+        if key not in self._sp:
+            self._sp[key] = sp_cfm_solve(self.tts.decoder, self.cfg.tts.cfm, mesh,
+                                         n_timesteps=n_timesteps, attention=sp_attention)
+        return self._sp[key], self._sp[dec_key]
+
     @torch.inference_mode()
     def warmup_long(
         self,
@@ -724,6 +784,8 @@ class Synthesizer:
         n_timesteps=(10,),
         pcm16: bool = False,
         log_fn=None,
+        mesh=None,
+        sp_attention: str = "scores",
         with_prompt: bool = False,
         attention: str = "auto",
     ) -> int:
@@ -742,13 +804,27 @@ class Synthesizer:
         512 past 1536). with_prompt=True also warms the cloning shapes: the
         solve with the 512-frame prompt head. attention must be the
         engine's long_attention, or the served requests take routes that
-        were not warmed. Returns the JAX package's count: 1 per text
-        bucket, 1 per (mel job, steps)."""
+        were not warmed. With mesh / sp_attention the solves warmed are the
+        sequence-parallel ones that synthesize_long(mesh=...) runs (the
+        decoder is placed on the mesh here); mel sizes the mesh's shape
+        table never picks are refused before any work. Returns the JAX
+        package's count: 1 per text bucket, 1 per (mel job, steps)."""
         if attention not in ATTENTION_MODES:
             raise ValueError(
                 f"unknown long-form attention {attention!r} "
                 "(use 'auto', 'banded' or 'exact')"
             )
+        n_seq = 1 if mesh is None else _seq_size(mesh)
+        if mesh is not None:
+            granule = long_frame_granule(n_seq)
+            align = math.lcm(512, n_seq)
+            bad = [t for t in mel_sizes if t % granule or (t > 1536 and t % align)]
+            if bad:
+                raise ValueError(
+                    f"mel_sizes {bad} not divisible by the mesh's frame "
+                    f"granule ({granule}; 512-aligned past 1536) — "
+                    f"synthesize_long(mesh=...) would never pick them"
+                )
         dev, count = self.device, 0
         spk = torch.zeros((1, self.cfg.tts.spk_embed_dim), device=dev)
         ones = torch.ones((1,), dtype=torch.int64, device=dev)
@@ -759,7 +835,7 @@ class Synthesizer:
             count += 1
             if log_fn:
                 log_fn(f"warmup_long: text bucket {t_text} ready")
-        p_head = math.lcm(512, long_frame_granule(1)) if with_prompt else 0
+        p_head = math.lcm(512, long_frame_granule(n_seq)) if with_prompt else 0
         spks = torch.zeros((1, 80), device=dev)
         for t_mel in mel_sizes:
             for t_total, head in [(t_mel, 0)] + ([(p_head + t_mel, p_head)] if p_head else []):
@@ -768,10 +844,14 @@ class Synthesizer:
                 cond = torch.zeros_like(mu)
                 noise = rand_noise_extended(t_total, device=dev)
                 for steps in n_timesteps:
-                    mel = cfm_forward(
-                        self.tts.decoder, self.cfg.tts.cfm, mu, mask, spks, cond,
-                        n_timesteps=int(steps), rand_noise=noise, attention=attention,
-                    )
+                    if mesh is None:
+                        mel = cfm_forward(
+                            self.tts.decoder, self.cfg.tts.cfm, mu, mask, spks, cond,
+                            n_timesteps=int(steps), rand_noise=noise, attention=attention,
+                        )
+                    else:
+                        run, dec = self._long_sp_fn(mesh, int(steps), sp_attention)
+                        mel = run(dec, mu, mask, spks, cond, noise[:, :t_total])
                     if head:
                         mel = mel[:, head : head + t_mel]
                     wav, _ = hift_mod.hift_vocode_auto(self.hift, mel)

@@ -15,6 +15,19 @@ The counterpart of the JAX package's `train/step.py` on one device:
     the update before the learning rate scales it.
 `Trainer.step` is `make_train_step`'s step: losses, backward, grad norm over
 the trainable parameters, clip, AdamW, and the step's learning rate.
+
+Data parallel (`Trainer(mesh=...)`, the data mesh of a torchrun job,
+`dist/mesh.py::make_mesh`): every rank is handed the same global batch and
+runs its own rows of it whole, so kernels 3-5 stay on the route at T >=
+2048. The trainable half is wrapped in DistributedDataParallel (the frozen
+decoder has requires_grad=False and stays out of its reducer). The JAX
+package's losses are ratios over the whole global batch, so each rank
+divides its numerators by the denominators summed over the ranks and
+scales its loss by the world size before DDP averages the gradients; every
+random draw is made at the global batch's shape and cut to the rank's rows
+(`nn/core.py::batch_rows`). The ranks together then take the step one
+process takes on the whole batch: the same losses, the same all-reduced
+gradients, so grad_norm, the clip and AdamW act alike on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import torch
 
 from jyutvoice_tpu_torch.config import TrainConfig, TTSConfig
 from jyutvoice_tpu_torch.models.tts import TTS, compute_losses
+from jyutvoice_tpu_torch.nn import core
 
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
@@ -173,16 +187,31 @@ def loss_fn(model: TTS, train_cfg: TrainConfig, generator: Optional[torch.Genera
     return losses.total, metrics
 
 
+class _Losses(torch.nn.Module):
+    """`loss_fn` as a module call, the unit DistributedDataParallel wraps."""
+
+    def __init__(self, model: TTS, train_cfg: TrainConfig):
+        super().__init__()
+        self.model = model
+        self.train_cfg = train_cfg
+
+    def forward(self, batch, generator, train_dropout):
+        return loss_fn(self.model, self.train_cfg, generator, batch, train_dropout)
+
+
 class Trainer:
     """Holds the training state of one device: the model (its parameters),
     the optimizer state, the step count and the random generator.
 
     `generator` (on the model's device) feeds every random draw of the
     losses; saving its state with a checkpoint makes a resumed run draw
-    what an uninterrupted one would."""
+    what an uninterrupted one would. `mesh`: the data mesh of a torchrun
+    job (`dist/mesh.py::make_mesh`); with more than one rank, every rank
+    is handed the same global batch and runs its own rows (module
+    docstring). Every rank holds the same model and optimizer state."""
 
     def __init__(self, model: TTS, train_cfg: TrainConfig, generator: torch.Generator,
-                 train_dropout: bool = True):
+                 train_dropout: bool = True, mesh=None):
         self.model = model
         self.train_cfg = train_cfg
         self.generator = generator
@@ -195,24 +224,65 @@ class Trainer:
                                max_norm=train_cfg.gradient_clip_val)
         self.schedule = lr_schedule(train_cfg)
         self.step_count = 0
+        # a data mesh over a process group (a group of one too: torchrun
+        # --nproc-per-node 1 runs the same collectives)
+        self.mesh = mesh if mesh is not None and torch.distributed.is_initialized() else None
+        self._losses = _Losses(model, train_cfg)
+        self._forward = self._losses
+        if self.mesh is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # DDP broadcasts rank 0's parameters and buffers here
+            self._forward = DistributedDataParallel(
+                self._losses, device_ids=[self.device] if self.device.type == "cuda" else None)
+
+    def _rows(self, batch: Dict[str, Tensor], sharded: bool):
+        """(this rank's rows of the batch, their `core.BatchRows`), or the
+        whole batch on one process or unsharded."""
+        if self.mesh is None or not sharded:
+            return batch, None
+        from jyutvoice_tpu_torch.dist.mesh import batch_sharding
+
+        b = batch["x"].shape[0]
+        rows = batch_sharding(self.mesh).rows(b)
+        local = {k: v[rows] for k, v in batch.items()}
+        return local, core.BatchRows(rows.start, b, self.mesh.comm().all_reduce)
+
+    def _sum_metrics(self, metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Each rank's share of the losses -> the global batch's, on every rank."""
+        keys = list(metrics)
+        total = self.mesh.comm().all_reduce(torch.stack([metrics[k].float() for k in keys]))
+        return {k: total[i] for i, k in enumerate(keys)}
+
+    def gradients(self, batch: Dict):
+        """(metrics, gradients): the losses of a collated global batch (numpy
+        arrays or device tensors) and the trainable parameters' gradients
+        (all-reduced over a data mesh), without updating anything."""
+        if not isinstance(batch["x"], Tensor) or batch["x"].device != self.device:
+            batch = batch_to_device(batch, self.device)
+        for p in self.params:
+            p.grad = None
+        local, rows = self._rows(batch, sharded=True)
+        with core.batch_rows(rows):
+            total, metrics = self._forward(local, self.generator, self.train_dropout)
+        if rows is not None:
+            # DDP averages the ranks' gradients: scale so that they add up
+            total = total * self.mesh.size
+            metrics = self._sum_metrics(metrics)
+        total.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        for p in self.params:
+            p.grad = None
+        return metrics, grads
 
     def step(self, batch: Dict) -> Dict[str, Tensor]:
         """One optimizer step on a collated batch (numpy arrays or device
         tensors). Returns the step's metrics: the losses, `grad_norm` over
         the trainable parameters before clipping, and `lr`."""
-        if not isinstance(batch["x"], Tensor) or batch["x"].device != self.device:
-            batch = batch_to_device(batch, self.device)
-        for p in self.params:
-            p.grad = None
-        total, metrics = loss_fn(self.model, self.train_cfg, self.generator, batch,
-                                 self.train_dropout)
-        total.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        metrics, grads = self.gradients(batch)
         norm = global_norm(grads)
         lr = self.schedule(self.step_count)
         self.optimizer.update(grads, lr, norm)
-        for p in self.params:
-            p.grad = None
         metrics["grad_norm"] = norm.detach()
         metrics["lr"] = lr
         self.step_count += 1
@@ -221,12 +291,18 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, batch: Dict) -> Dict[str, Tensor]:
         """Eval-mode losses (no dropout) of one batch; draws from a
-        generator seeded 0, as the JAX package's validation uses key 0."""
+        generator seeded 0, as the JAX package's validation uses key 0. On a
+        data mesh a batch whose rows split over the ranks is sharded; one
+        that does not is evaluated whole on every rank (exact: padding it
+        with repeated rows would bias the mean)."""
         if not isinstance(batch["x"], Tensor) or batch["x"].device != self.device:
             batch = batch_to_device(batch, self.device)
         gen = torch.Generator(device=self.device).manual_seed(0)
-        _, metrics = loss_fn(self.model, self.train_cfg, gen, batch, False)
-        return metrics
+        sharded = self.mesh is not None and batch["x"].shape[0] % self.mesh.size == 0
+        local, rows = self._rows(batch, sharded)
+        with core.batch_rows(rows):
+            _, metrics = loss_fn(self.model, self.train_cfg, gen, local, False)
+        return self._sum_metrics(metrics) if rows is not None else metrics
 
     def state_dict(self) -> dict:
         return {

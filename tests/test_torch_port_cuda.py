@@ -36,7 +36,10 @@ the graph at the 128 bucket, the banded route and the windowed vocoder at
 4096; call 2 leaves call 1's result as it was; a replay after the
 constants' cache was cleared and its memory reused), an artifact exported on
 the card against the eager module on "xla_scores" (1e-6), and kernel 2's
-op on CUDA against the plain version at the stage's bars.
+op on CUDA against the plain version at the stage's bars. Multi-device:
+a data-parallel step of two Gloo ranks sharing the card against one
+process (losses 1e-3, gradients 2e-2 relative L2) and the sequence-parallel
+solve on a one-rank NCCL mesh against one device (atol 2e-5 / rtol 1e-4).
 """
 
 import pytest
@@ -1144,3 +1147,76 @@ def test_resblock_stage_op_on_the_card_matches_plain(cuda):
     assert kernels.LAUNCHES["resblock_stage"] == 1
     torch.testing.assert_close(got, resblock_stage_plain(x, w, kernel_sizes=ks, dilations=dil),
                                atol=2e-5, rtol=1e-4)
+
+
+def _ddp_rank(mesh, batch):
+    """One rank of a data-parallel step of the small trainer (run on every
+    rank of a spawned mesh): metrics, all-reduced gradients, launches."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.dist.mesh import make_mesh
+
+    trainer = _small_trainer(mesh.device, make_mesh())
+    kernels.reset_launch_counts()
+    metrics, grads = trainer.gradients(batch)
+    return ({k: float(v) for k, v in metrics.items()}, [g.cpu() for g in grads],
+            dict(kernels.LAUNCHES))
+
+
+def _small_trainer(device, mesh=None):
+    from jyutvoice_tpu_torch.models.tts import TTS
+    from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
+    from jyutvoice_tpu_torch.train.step import Trainer
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    disable_tf32()
+    cfg, tts, _ = _small_trees()
+    model = load_jax_params(TTS(cfg.tts), tts).to(device)
+    return Trainer(model, cfg.train, torch.Generator(device=device).manual_seed(0), mesh=mesh)
+
+
+def test_ddp_step_of_two_gloo_ranks_on_one_card_matches_one_process(cuda):
+    """Two Gloo ranks sharing the card, each on its half of a global batch
+    of 4 unequal rows in the 2048 bucket (kernels 3, 4, 5 on each rank),
+    against one process on the whole batch: losses 1e-3, gradients 2e-2
+    relative L2 (the card's training bars)."""
+    from jyutvoice_tpu_torch.dist.mesh import Mesh
+    from jyutvoice_tpu_torch.train.datamodule import DataConfig, TextMelDataModule, dummy_rows
+
+    dm = TextMelDataModule(dummy_rows(9, seed=5, mel_frames=(1400, 2000)), DataConfig(batch_size=4))
+    batch = next(iter(dm.train_batches(0)))
+    assert batch["y"].shape[1] == 2048 and len(set(batch["y_lengths"].tolist())) == 4
+    with Mesh.spawn(("data",), (2,), ["cuda:0", "cuda:0"], backend="gloo") as mesh:
+        m2, g2, launches = mesh.run(_ddp_rank, batch)
+    m1, g1 = _small_trainer(cuda).gradients(batch)
+    for k, v in m1.items():
+        assert abs(m2[k] - float(v)) <= 1e-3 * abs(float(v)), k
+    diff = sum(float(torch.sum((a - b.cpu()) ** 2)) for a, b in zip(g2, g1))
+    ref = sum(float(torch.sum(b.cpu() ** 2)) for b in g1)
+    assert (diff / ref) ** 0.5 <= 2e-2
+    per = 3  # (num_mid_blocks + 2) * n_blocks of the small estimator
+    assert launches["flash_stock"] == launches["flash_stock_bwd_dq"] == per
+
+
+def test_sp_solve_on_a_one_rank_nccl_mesh_matches_one_device(cuda):
+    """synthesize_long(mesh=...) on a one-rank NCCL mesh, "scores" and
+    "ring", against the single-device solve on "xla_scores" (atol 2e-5 /
+    rtol 1e-4, the JAX package's SP bar)."""
+    import dataclasses
+
+    import numpy as np
+
+    from jyutvoice_tpu_torch.dist.sp import make_sp_mesh
+    from jyutvoice_tpu_torch.dist.tp import tp_cfm_cfg
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+
+    cfg, tts, hift = _small_trees()
+    scores = dataclasses.replace(cfg, tts=dataclasses.replace(cfg.tts, cfm=tp_cfm_cfg(cfg.tts.cfm)))
+    synth = Synthesizer(cfg, tts, hift, device=cuda)
+    kw = dict(lang="yue", phone="keoi5 hai6 bin1 go3", n_timesteps=2, length_scale=8.0)
+    want = Synthesizer(scores, tts, hift, device=cuda).synthesize_long("佢 係 邊 個", **kw)
+    with make_sp_mesh(1, devices=["cuda:0"]) as mesh:
+        assert mesh.backend == "nccl"
+        for mode in ("scores", "ring"):
+            got = synth.synthesize_long("佢 係 邊 個", mesh=mesh, sp_attention=mode, **kw)
+            assert got.mel_frames == want.mel_frames
+            np.testing.assert_allclose(got.mel, want.mel, atol=2e-5, rtol=1e-4, err_msg=mode)

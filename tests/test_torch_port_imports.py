@@ -356,3 +356,39 @@ def test_port_exports_and_reloads_a_bucket_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "PORT_EXPORTS_STANDALONE_OK" in proc.stdout
+
+
+_DIST_CHILD = _CHILD.split("s = Synthesizer(")[0] + r"""
+import torch
+
+from jyutvoice_tpu_torch import dist
+from jyutvoice_tpu_torch.dist import sp
+from jyutvoice_tpu_torch.models import tts as tts_mod
+from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+from jyutvoice_tpu_torch.weights.noise import rand_noise
+
+dec = load_jax_params(tts_mod.TTS(cfg.tts), init_tts_tree(cfg.tts)).decoder
+with dist.make_sp_mesh(1, devices=["cpu"], backend="gloo") as mesh:
+    assert mesh.shape == {"seq": 1} and mesh.backend == "gloo"
+    placed = dist.shard_params(dec, mesh)
+    mu = torch.randn(1, 32, 80)
+    mel = dist.sp_cfm_solve(dec, cfg.tts.cfm, mesh, n_timesteps=1)(
+        placed, mu, torch.ones(1, 32, 1), torch.randn(1, 80), torch.zeros_like(mu), rand_noise(32))
+assert mel.shape == (1, 32, 80) and bool(torch.isfinite(mel).all())
+assert not any(m.split(".")[0] in ("jax", "jyutvoice_tpu") for m in sys.modules)
+print("PORT_DIST_STANDALONE_OK", tuple(mel.shape))
+"""
+
+
+def test_dist_builds_a_gloo_mesh_with_jax_blocked():
+    """`jyutvoice_tpu_torch.dist` imports, builds a 1-rank Gloo mesh and
+    solves on it in a process where JAX and the JAX package cannot be
+    imported."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-c", _DIST_CHILD], env=env, capture_output=True, timeout=600,
+        text=True, cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "PORT_DIST_STANDALONE_OK" in proc.stdout
