@@ -18,6 +18,7 @@ import torch
 from jyutvoice_tpu_torch.config import CFMConfig
 from jyutvoice_tpu_torch.models.estimator import Estimator
 from jyutvoice_tpu_torch.nn import core
+from jyutvoice_tpu_torch.utils.observability import span
 
 Tensor = torch.Tensor
 
@@ -58,13 +59,14 @@ def cfm_forward(
     temperature: float = 1.0, streaming: bool = False, attention: str = "auto",
 ) -> Tensor:
     """Mel from the prior mean. rand_noise: (1, >= T, 80) fixed noise buffer."""
-    t = mu.shape[1]
-    z = rand_noise[:, :t, :].to(mu.dtype) * temperature
-    z = z.expand(mu.shape)
-    t_span = cosine_t_span(n_timesteps, device=mu.device).to(mu.dtype)
-    return solve_euler_cfg(
-        estimator, cfg, z, t_span, mu, mask, spks, cond, streaming, attention
-    )
+    with span("mel.solve"):
+        t = mu.shape[1]
+        z = rand_noise[:, :t, :].to(mu.dtype) * temperature
+        z = z.expand(mu.shape)
+        t_span = cosine_t_span(n_timesteps, device=mu.device).to(mu.dtype)
+        return solve_euler_cfg(
+            estimator, cfg, z, t_span, mu, mask, spks, cond, streaming, attention
+        )
 
 
 def cfm_loss(

@@ -29,6 +29,7 @@ from jyutvoice_tpu_torch.nn.resblock_stage import (
     prepare_stage_weights,
     resblock_stage_prepared,
 )
+from jyutvoice_tpu_torch.utils.observability import span
 
 Tensor = torch.Tensor
 
@@ -453,6 +454,7 @@ def hift_inference_windowed(
 def hift_vocode_auto(model: HiFT, mel: Tensor) -> Tuple[Tensor, Tensor]:
     """Batch-1 mels of 4096 frames or more take the windowed path, as in the
     JAX package; everything else the whole decode."""
-    if mel.shape[0] == 1 and mel.shape[1] >= 4096:
-        return hift_inference_windowed(model, mel)
-    return hift_inference(model, mel)
+    with span("vocoder"):
+        if mel.shape[0] == 1 and mel.shape[1] >= 4096:
+            return hift_inference_windowed(model, mel)
+        return hift_inference(model, mel)

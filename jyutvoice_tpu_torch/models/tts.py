@@ -25,6 +25,7 @@ from jyutvoice_tpu_torch.models.duration import DurationPredictor, duration_loss
 from jyutvoice_tpu_torch.models.estimator import Estimator
 from jyutvoice_tpu_torch.models.text_encoder import TextEncoder
 from jyutvoice_tpu_torch.nn import core
+from jyutvoice_tpu_torch.utils.observability import span
 
 Tensor = torch.Tensor
 
@@ -112,10 +113,10 @@ def synthesize_mel(
     """Prompt lengths of zero (and empty prompt arrays) give the path with no
     voice cloning. Nothing is read back to the host."""
     cfg = model.cfg
-    enc = model.encoder(x_ids, x_lengths, lang, tone, word_pos, syllable_pos, spk_embed)
-    c = model.spk_embed_affine_layer(l2_normalize(spk_embed, dim=1))  # (B, 80)
-
-    logw = model.dp(enc.x, enc.x_mask, spk_embed)  # (B, T_text, 1)
+    with span("text_half"):
+        enc = model.encoder(x_ids, x_lengths, lang, tone, word_pos, syllable_pos, spk_embed)
+        c = model.spk_embed_affine_layer(l2_normalize(spk_embed, dim=1))  # (B, 80)
+        logw = model.dp(enc.x, enc.x_mask, spk_embed)  # (B, T_text, 1)
     w = torch.exp(logw) * enc.x_mask
     w_ceil = torch.ceil(w) * length_scale  # scale AFTER ceil, as the reference
     y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)

@@ -37,6 +37,7 @@ import torch
 from torch import nn
 
 from jyutvoice_tpu_torch.kernels import refuse_autograd
+from jyutvoice_tpu_torch.utils.observability import span
 
 Tensor = torch.Tensor
 
@@ -124,13 +125,14 @@ def int8_matmul(x_q: Tensor, w_q_t: Tensor) -> Tensor:
 
 def _linear_q(x: Tensor, w_q_t: Tensor, scale: Tensor, bias) -> Tensor:
     refuse_autograd("the int8 linear", x)
-    lead, k = x.shape[:-1], x.shape[-1]
-    x_q, sx = quantize_rows(x.reshape(-1, k).float())
-    acc = int8_matmul(x_q, w_q_t)
-    y = acc.float() * sx * scale
-    if bias is not None:
-        y = y + bias
-    return y.reshape(*lead, -1)
+    with span("int8.linear"):
+        lead, k = x.shape[:-1], x.shape[-1]
+        x_q, sx = quantize_rows(x.reshape(-1, k).float())
+        acc = int8_matmul(x_q, w_q_t)
+        y = acc.float() * sx * scale
+        if bias is not None:
+            y = y + bias
+        return y.reshape(*lead, -1)
 
 
 def linear_q(p: Dict, x: Tensor) -> Tensor:

@@ -23,6 +23,11 @@ The counterpart of the JAX package's `pipeline/server.py` on one device:
 
 Both workers are threads of their own. Inference mode and the current CUDA
 device are per thread in PyTorch, so each worker enters them itself.
+
+The engine's worker marks its steps with spans (`utils/observability.py`,
+recorded while the recorder is on): `engine.collect`, `engine.validate`,
+`engine.dispatch` (one per `synthesize_batch_dispatch` call) and
+`engine.finalize`.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from jyutvoice_tpu_torch.pipeline.synthesize import (
     NoiseBufferExceeded,
     OverLongBatchItems,
 )
+from jyutvoice_tpu_torch.utils.observability import span
 
 
 def _worker_context(device: torch.device) -> contextlib.ExitStack:
@@ -58,14 +64,26 @@ def _worker_context(device: torch.device) -> contextlib.ExitStack:
     return stack
 
 
+def _pinned_allocs(device: torch.device) -> int:
+    """Pinned host blocks that the CUDA caching host allocator has allocated
+    so far in this process: the buffers it could not reuse, each a
+    cudaHostAlloc. 0 off CUDA."""
+    if device.type != "cuda":
+        return 0
+    return int(torch.cuda.host_memory_stats()["num_host_alloc"])
+
+
 @dataclasses.dataclass
 class ServeStats:
     requests: int = 0
     batches: int = 0  # finalize rounds (one per collected group)
     dispatches: int = 0  # device dispatches (text-bucket and split partitions)
     errors: int = 0
-    total_wait_s: float = 0.0  # queue wait (submit -> group start)
     total_latency_s: float = 0.0  # submit -> result
+    # pinned host blocks allocated across dispatches and finalizes (the
+    # allocator's count is the process's: another thread's allocations in
+    # the meantime count too)
+    pinned_allocs: int = 0
     batch_sizes: Optional[List[int]] = None
 
     def __post_init__(self):
@@ -269,6 +287,15 @@ class ServingEngine:
                 self._fail([req], e)
         return ok
 
+    @contextlib.contextmanager
+    def _counting_pinned(self):
+        """Add the pinned host blocks allocated in the block to the stats."""
+        n0 = _pinned_allocs(self.synth.device)
+        try:
+            yield
+        finally:
+            self.stats.pinned_allocs += _pinned_allocs(self.synth.device) - n0
+
     def _dispatch_sub(self, sub: List[_Request], finals, ok_group, defer_long) -> None:
         """Dispatch one part of a group, failing only the requests at fault:
         items past the batch mel table go to `defer_long` (served by
@@ -283,11 +310,12 @@ class ServingEngine:
             if not attempt:
                 continue
             try:
-                finals.append(self.synth.synthesize_batch_dispatch(
-                    [r.item for r in attempt], n_timesteps=self.n_timesteps,
-                    length_scale=self.length_scale, return_mel=self.return_mel,
-                    pcm16=self.pcm16,
-                ))
+                with span("engine.dispatch"), self._counting_pinned():
+                    finals.append(self.synth.synthesize_batch_dispatch(
+                        [r.item for r in attempt], n_timesteps=self.n_timesteps,
+                        length_scale=self.length_scale, return_mel=self.return_mel,
+                        pcm16=self.pcm16,
+                    ))
                 ok_group.extend(attempt)
                 self.stats.dispatches += 1
             except OverLongBatchItems as e:
@@ -306,18 +334,20 @@ class ServingEngine:
                 self._fail(attempt, e)
 
     def _finalize(self, group: List[_Request], finalize) -> None:
-        try:
-            results = finalize()
-        except Exception as e:  # noqa: BLE001 — failed read-back: fail the group
-            self._fail(group, e)
-            return
-        t_end = time.perf_counter()
-        self.stats.batches += 1
-        self.stats.batch_sizes.append(len(group))
-        for req, res in zip(group, results):
-            self.stats.requests += 1
-            self.stats.total_latency_s += t_end - req.t_submit
-            self._resolve(req.future, req.future.set_result, res)
+        with span("engine.finalize"):
+            try:
+                with self._counting_pinned():
+                    results = finalize()
+            except Exception as e:  # noqa: BLE001 — failed read-back: fail the group
+                self._fail(group, e)
+                return
+            t_end = time.perf_counter()
+            self.stats.batches += 1
+            self.stats.batch_sizes.append(len(group))
+            for req, res in zip(group, results):
+                self.stats.requests += 1
+                self.stats.total_latency_s += t_end - req.t_submit
+                self._resolve(req.future, req.future.set_result, res)
 
     def _partition(self, group: List[_Request]) -> List[List[_Request]]:
         """Parts of at most split_dispatch_at requests whose text lengths
@@ -372,16 +402,15 @@ class ServingEngine:
                 self._finalize(*pending)
                 pending = None
                 continue
-            group = self._collect()
+            with span("engine.collect"):
+                group = self._collect()
             if not group:
                 if pending is not None:
                     self._finalize(*pending)
                     pending = None
                 continue
-            t_start = time.perf_counter()
-            for req in group:
-                self.stats.total_wait_s += t_start - req.t_submit
-            group = self._validate(group)
+            with span("engine.validate"):
+                group = self._validate(group)
             if not group:
                 continue
             # long-form texts go through synthesize_long one by one (two of

@@ -39,6 +39,7 @@ from jyutvoice_tpu_torch.models.cfm import cfm_forward
 from jyutvoice_tpu_torch.models.estimator import ATTENTION_MODES
 from jyutvoice_tpu_torch.pipeline import buckets as bkt
 from jyutvoice_tpu_torch.text import intersperse, text_to_sequence
+from jyutvoice_tpu_torch.utils.observability import span
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 from jyutvoice_tpu_torch.weights.noise import rand_noise, rand_noise_extended
 
@@ -156,7 +157,8 @@ class _Readback:
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
+            with span("wait.readback"):
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -221,16 +223,19 @@ class Synthesizer:
             torch.as_tensor(a, device=self.device) for a in arrs
         )
         x_lengths = torch.as_tensor(n, device=self.device)
-        enc = self.tts.encoder(x, x_lengths, lang_ids, tone, word_pos, syllable_pos, spk)
-        logw = self.tts.dp(enc.x, enc.x_mask, spk)
-        return enc, torch.ceil(torch.exp(logw) * enc.x_mask)
+        with span("text_half"):
+            enc = self.tts.encoder(x, x_lengths, lang_ids, tone, word_pos, syllable_pos, spk)
+            logw = self.tts.dp(enc.x, enc.x_mask, spk)
+            return enc, torch.ceil(torch.exp(logw) * enc.x_mask)
 
     @torch.inference_mode()
     def duration_frames_batch(self, arrs, n, spk: torch.Tensor) -> np.ndarray:
         """Phase 1 for every row: the mel frames each text needs at
         length_scale 1, read back to the host (float32, at least 1)."""
         _, w_ceil = self._durations(arrs, n, spk)
-        return torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).cpu().numpy()
+        frames = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0)
+        with span("wait.durations"):
+            return frames.cpu().numpy()
 
     def duration_frames(self, arrs, n, spk: torch.Tensor) -> int:
         """Phase 1: mel frames the text needs at length_scale 1."""
@@ -602,24 +607,25 @@ class Synthesizer:
                 "prompt_h must be given together with equal frame counts "
                 "(PromptExtractor returns the aligned pair)"
             )
-        prepped = [
-            it.get("_prepped")
-            or self.prepare_text(it["text"], it.get("lang", "yue"), it.get("phone"))
-            for it in items
-        ]
-        t_text = max(p[2] for p in prepped)
-        feats = np.zeros((5, b_pad, t_text), np.int64)  # x, tone, word_pos, syllable_pos, lang
-        x_lengths = np.zeros((b_pad,), np.int64)
-        for i, (arrs, n, _) in enumerate(prepped):
-            for f, a in enumerate(arrs):
-                feats[f, i, : a.shape[1]] = a[0]
-            x_lengths[i] = n[0]
-        spk = np.zeros((b_pad, self.cfg.tts.spk_embed_dim), np.float32)
-        for i, it in enumerate(items):
-            if it.get("spk_embed") is not None:
-                spk[i] = it["spk_embed"]
         dev = self.device
-        feats_d, x_len_d, spk_d = (_to_device(a, dev) for a in (feats, x_lengths, spk))
+        with span("batch.stage"):
+            prepped = [
+                it.get("_prepped")
+                or self.prepare_text(it["text"], it.get("lang", "yue"), it.get("phone"))
+                for it in items
+            ]
+            t_text = max(p[2] for p in prepped)
+            feats = np.zeros((5, b_pad, t_text), np.int64)  # x, tone, word_pos, syllable_pos, lang
+            x_lengths = np.zeros((b_pad,), np.int64)
+            for i, (arrs, n, _) in enumerate(prepped):
+                for f, a in enumerate(arrs):
+                    feats[f, i, : a.shape[1]] = a[0]
+                x_lengths[i] = n[0]
+            spk = np.zeros((b_pad, self.cfg.tts.spk_embed_dim), np.float32)
+            for i, it in enumerate(items):
+                if it.get("spk_embed") is not None:
+                    spk[i] = it["spk_embed"]
+            feats_d, x_len_d, spk_d = (_to_device(a, dev) for a in (feats, x_lengths, spk))
         x, tone, word_pos, syllable_pos, lang_ids = feats_d
 
         y_lens = self.duration_frames_batch(feats_d, x_len_d, spk_d)
@@ -638,18 +644,19 @@ class Synthesizer:
         p_lens = np.array([0 if it.get("prompt_feat") is None else len(it["prompt_feat"])
                            for it in items], np.int32)
         t_prompt = bkt.pick_prompt_bucket(int(p_lens.max()), t_mel)
-        prompts = np.zeros((2, b_pad, t_prompt, 80), np.float32)  # prompt_feat, prompt_h
-        for i, it in enumerate(items):
-            if p_lens[i]:
-                prompts[0, i, : p_lens[i]] = it["prompt_feat"]
-                prompts[1, i, : p_lens[i]] = it["prompt_h"]
         if t_prompt + t_mel > self.noise.shape[1]:
             raise NoiseBufferExceeded(
                 f"prompt ({t_prompt}) + mel ({t_mel}) frames exceed the "
                 f"{self.noise.shape[1]}-frame noise buffer; synthesize such items alone "
                 "(synthesize / synthesize_long extend the noise)"
             )
-        prompts_d = _to_device(prompts, dev)
+        with span("batch.stage"):
+            prompts = np.zeros((2, b_pad, t_prompt, 80), np.float32)  # prompt_feat, prompt_h
+            for i, it in enumerate(items):
+                if p_lens[i]:
+                    prompts[0, i, : p_lens[i]] = it["prompt_feat"]
+                    prompts[1, i, : p_lens[i]] = it["prompt_h"]
+            prompts_d = _to_device(prompts, dev)
 
         out = tts_mod.synthesize_mel(
             self.tts, x, x_len_d, lang_ids, tone, word_pos, syllable_pos, spk_d,

@@ -1,24 +1,142 @@
-"""Traces, stage timers, parameter counts and the NaN guard: the counterpart
-of the JAX package's `utils/observability.py` (the reference's thin
-observability layer; the synthesis pipeline reports RTF itself).
+"""Spans, traces, stage timers, parameter counts and the NaN guard: the
+counterpart of the JAX package's `utils/observability.py` (the reference's
+thin observability layer; the synthesis pipeline reports RTF itself), with
+the port's span recorder.
+
+`span(name)` marks a layer boundary of the program. The recorder is off
+unless `enable()` turned it on: a span is then one shared object that does
+nothing, at the cost of a flag check. On, each span is kept in memory
+(`Span`: name, start and end on `time.time_ns()`, the thread, the enclosing
+span of that thread) until `drain()` hands the records over.
+`time.time_ns()` is the clock on which Kineto stamps host and device events,
+so spans lie over a `torch.profiler` trace of the same process; they are
+kept by the recorder itself, and not as `record_function` ranges, because
+those exist only while a profiler runs and the engine's host time is read
+without one. Nothing is recorded while torch.export or dynamo traces
+(`kernels.tracing()`). Names starting with `wait.` mark the host blocked on
+the device.
 
 `trace` records a `torch.profiler` trace (host and, on the GPU, device
 activity) as a Chrome-trace JSON that Perfetto and TensorBoard's profiler
-plugin open. `debug_nans` is the reference's detect_anomaly flag
-(configs/base.yaml:139) over `torch.autograd.set_detect_anomaly`."""
+plugin open. `StageTimer` is a recorder that adds up its spans by name.
+`debug_nans` is the reference's detect_anomaly flag (configs/base.yaml:139)
+over `torch.autograd.set_detect_anomaly`."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import logging
+import threading
 import time
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from jyutvoice_tpu_torch import kernels
+
 _log = logging.getLogger(__name__)
+
+
+class Span:
+    """One recorded span. `parent` is the id of the span that was open on
+    the same thread when this one opened (None at the top). The thread is
+    given twice: `tid`, its native id (Kineto's thread of a host
+    operation), and `ident`, its pthread id (`threading.get_ident()`; CUPTI
+    stamps a runtime call with its low 32 bits)."""
+
+    __slots__ = ("id", "name", "parent", "tid", "ident", "start_ns", "end_ns", "_rec")
+
+    def __init__(self, rec: "Recorder", name: str):
+        self._rec, self.name = rec, name
+        self.id = next(rec._ids)
+
+    def __enter__(self) -> "Span":
+        stack = self._rec._stack()
+        self.parent = stack[-1].id if stack else None
+        self.tid = threading.get_native_id()
+        self.ident = threading.get_ident()
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        self._rec._stack().pop()
+        self._rec._close(self)
+        return False
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, tid={self.tid}, "
+                f"{self.start_ns}..{self.end_ns})")
+
+
+class _NoSpan:
+    """The span of a recorder that is off: records nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class Recorder:
+    """Spans in memory, in the order they closed; one stack of open spans
+    per thread. Spans may open and close on any thread."""
+
+    def __init__(self, on: bool = False):
+        self.on = on
+        self._records: List[Span] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count()
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def _close(self, s: Span) -> None:
+        with self._lock:
+            self._records.append(s)
+
+    def span(self, name: str):
+        """A context manager: a `Span` recorded on exit, or `NO_SPAN` while
+        the recorder is off or torch.export / dynamo traces."""
+        if not self.on or kernels.tracing():
+            return NO_SPAN
+        return Span(self, name)
+
+    def drain(self) -> List[Span]:
+        """The records so far, which the recorder then forgets."""
+        with self._lock:
+            out, self._records = self._records, []
+        return out
+
+
+RECORDER = Recorder()
+span = RECORDER.span
+
+
+def enable() -> None:
+    RECORDER.on = True
+
+
+def disable() -> None:
+    RECORDER.on = False
+
+
+def drain() -> List[Span]:
+    return RECORDER.drain()
 
 
 @contextlib.contextmanager
@@ -52,23 +170,22 @@ def debug_nans(enable: bool = True) -> Iterator[None]:
         torch.autograd.set_detect_anomaly(prev)
 
 
-class StageTimer:
-    """Accumulating wall-clock stage timer; reports xRT per stage. Times
-    GPU work only where the block synchronizes."""
+class StageTimer(Recorder):
+    """Accumulating stage timer; reports xRT per stage. A stage is a span
+    of the timer, which is always on and adds the span's time to its stage
+    as it closes, keeping nothing else: the timer has no clock of its own.
+    Times GPU work only where the block synchronizes."""
 
     def __init__(self) -> None:
+        super().__init__(on=True)
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
 
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+    stage = Recorder.span
+
+    def _close(self, s: Span) -> None:
+        self.totals[s.name] = self.totals.get(s.name, 0.0) + (s.end_ns - s.start_ns) * 1e-9
+        self.counts[s.name] = self.counts.get(s.name, 0) + 1
 
     def report(self, audio_seconds: Optional[float] = None) -> Dict[str, dict]:
         out = {}
