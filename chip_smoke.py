@@ -6,11 +6,12 @@
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off (parity with the f32 reference path);
-  2. build: the four CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
+  2. build: the five CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
      nvcc in parallel; per compiled kernel, ptxas's registers and spills and
      the count of HGMMA (wgmma) instructions in its SASS (kernels 1 and 3,
      kernel 2 at C=128 and C=64, and every dK/dV and dQ kernel of kernels 4
-     and 5 at D=64 and D=128 must have them), and ptxas's warnings;
+     and 5 at D=64 and D=128 must have them; the int8 GEMM at each tile
+     width its IGMMA, the integer wgmma), and ptxas's warnings;
   3. kernel 1 (flash attention) against its plain version on the valid rows
      at the estimator's shapes (T = 512, 576, 640, chunk rules 50/-1 and
      100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128, ragged
@@ -183,7 +184,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      11c, the host MAS: mas.cpp built with g++ and loaded (the numpy fallback
      must not run), on the MAS inputs of phase 9's steps (B=2 at the 2048
      bucket, B=16 at mel 512) bit-equal to the device maximum_path, both
-     timed, the host's with its copies to and from the card.
+     timed, the host's with its copies to and from the card;
+     11d, the int8 linear's two kernels (csrc/int8_linear.cu) at the
+     estimator's four (K, N), q/k/v (256, 512) without a bias and o, ff_in,
+     ff_out with one, at 49152 rows (a batch-16 group at the 1536 bucket with
+     CFG) and 1024: bit-equal to the plain composition on the card, one
+     launch of each kernel a call, the pair's CUDA-event and device (CUDA
+     graph) times and each kernel's device time beside the linear's own
+     bytes bound (bound_ms) and, apart, the x_q and sx round trip the design
+     adds (x_q_ms), the plain composition's times (plain_ms) and
+     torch._int_mm's alone (library_ms), and the wrapper's host cost per
+     call.
   12. the serving export at full width (seeded random trees, 10 steps,
      phase 6's sentence and text bucket): 12a aot_compile at the 512
      bucket, 12b with phase 6's 100-frame prompt in its prompt bucket, 12c
@@ -256,6 +267,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+PEAK_INT8_OPS = 1979e12
 
 ATTN_TOL = (5e-3, 2e-2)  # atol, rtol: bf16 products, f32 accumulation
 STOCK_TOL = (5e-3, 1e-2)  # the JAX package's bar for the stock flash kernel
@@ -385,6 +397,9 @@ def _short_kernel_name(mangled):
     m = re.search(r"resblock_stage_sm90ILi(\d+)E", mangled)
     if m:
         return f"resblock_stage_sm90<C={m.group(1)}>"
+    m = re.search(r"int8_gemm_sm90ILi(\d+)E", mangled)
+    if m:
+        return f"int8_gemm_sm90<BN={m.group(1)}>"
     m = re.search(r"flash_stock_bwd_sm90ILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", mangled)
     if m:
         d, nc, ns, dkv = m.groups()
@@ -425,6 +440,12 @@ def phase_build():
     for name in ("flash_attention", "flash_stock"):
         if not hgmma[name] or not all(hgmma[name].values()):
             fail(f"csrc/{name}.cu has a kernel without HGMMA in its SASS: {hgmma[name]}")
+    # the int8 GEMM: integer wgmma (IGMMA)
+    igmma = {_short_kernel_name(f): n for f, n in
+             kernels.sass_opcode_count("int8_linear", "IGMMA").items() if "int8_gemm" in f}
+    log(f"  int8_linear: IGMMA in SASS: {igmma}")
+    if len(igmma) != 1 or not all(igmma.values()):
+        fail(f"csrc/int8_linear.cu: an int8 GEMM lacks IGMMA in its SASS: {igmma}")
     # kernel 2: the instantiations of the main path's stages (C=128 and 64)
     stage = {_short_kernel_name(f): n for f, n in hgmma["resblock_stage"].items()}
     for c in (128, 64):
@@ -963,7 +984,7 @@ def phase_train_reference():
     per_call = est.num_mid_blocks + 2
     want = {"flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
             "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call,
-            "flash_attention": 0, "resblock_stage": 0}
+            "flash_attention": 0, "resblock_stage": 0, "int8_quant_rows": 0, "int8_gemm": 0}
     loss_gap = {k: abs(card["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
     diff = sum(float(torch.sum((card["grads"][n] - g) ** 2)) for n, g in cpu["grads"].items())
     ref = sum(float(torch.sum(g ** 2)) for g in cpu["grads"].values())
@@ -1063,7 +1084,7 @@ def run_request(synth, label, expect_bucket=None, **kw):
         and res.wav.shape == (res.mel_frames * 480,)
         and launches == {"flash_attention": want_flash, "resblock_stage": 2, "flash_stock": 0,
                          "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
-                         "flash_stock_bwd_prep": 0}
+                         "flash_stock_bwd_prep": 0, "int8_quant_rows": 0, "int8_gemm": 0}
         and (expect_bucket is None or bucket == expect_bucket)
     )
     t = {k: round(v, 6) for k, v in res.timings.items()}
@@ -1911,15 +1932,19 @@ def _serve_group(engine, items, direct, label, want_dispatches, smi, capture=Non
     pcm16=True)): mel frames equal, mel MAE < 1e-2; the largest waveform gap
     is printed in PCM16 steps. Fails unless the group was one batch of
     `want_dispatches` dispatches of 560 kernel-1 and 2 kernel-2 launches
-    each. With a dict `capture`, kernels 1 and 2's inputs at shapes not seen
+    each, and on an int8 decoder a launch of each int8 linear kernel per
+    QuantLinear and step. With a dict `capture`, kernels 1 and 2's inputs at shapes not seen
     yet go into it (`serving_kernel_inputs`). Returns (launches, wall s,
     audio s)."""
     import numpy as np
 
     from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn.quant import QuantLinear
 
     est = engine.synth.cfg.tts.cfm.estimator
     per_dispatch = engine.n_timesteps * (est.num_mid_blocks + 2) * est.n_blocks
+    int8_per_dispatch = engine.n_timesteps * sum(
+        isinstance(m, QuantLinear) for m in engine.synth.tts.modules())
     d0, b0 = engine.stats.dispatches, engine.stats.batches
     kernels.reset_launch_counts()
     with (contextlib.nullcontext() if capture is None
@@ -1941,7 +1966,9 @@ def _serve_group(engine, items, direct, label, want_dispatches, smi, capture=Non
     audio_s = sum(r.mel_frames for r in res) * 480 / 24000
     want_launches = {k: 0 for k in launches}
     want_launches.update(flash_attention=per_dispatch * want_dispatches,
-                         resblock_stage=2 * want_dispatches)
+                         resblock_stage=2 * want_dispatches,
+                         int8_quant_rows=int8_per_dispatch * want_dispatches,
+                         int8_gemm=int8_per_dispatch * want_dispatches)
     log(f"serve engine {label}: {len(items)} requests, {batches} batch, {dispatches} dispatches, "
         f"frames {[r.mel_frames for r in res]}, wall {wall * 1e3:.1f} ms for {audio_s:.2f} s "
         f"of audio, aggregate rtf {wall / audio_s:.4f}; vs direct synthesize: mel MAE max "
@@ -2298,7 +2325,8 @@ def phase_long_form(synth):
             and head + t_mel == t_total
             and launches == {"flash_attention": want_k1, "flash_stock": want_k3,
                              "resblock_stage": 2, "flash_stock_bwd_dkv": 0,
-                             "flash_stock_bwd_dq": 0, "flash_stock_bwd_prep": 0}
+                             "flash_stock_bwd_dq": 0, "flash_stock_bwd_prep": 0,
+                             "int8_quant_rows": 0, "int8_gemm": 0}
         )
         t = {k: round(v, 6) for k, v in res.timings.items()}
         log(f"long-form {label}: mel_frames={res.mel_frames} t_total={head + t_mel} "
@@ -3058,6 +3086,9 @@ def phase_int8(params_tts, params_hift, scale, smi):
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         want = dict(zero, flash_attention=kw["n_timesteps"] * per_step, resblock_stage=2)
+        if name == "int8":  # each int8 linear once a step: two launches
+            want.update(int8_quant_rows=kw["n_timesteps"] * want_q,
+                        int8_gemm=kw["n_timesteps"] * want_q)
         got_bucket = buckets.pick_bucket(res.mel_frames, buckets.MEL_BUCKETS)
         log(f"int8 phase {name} {label}: mel_frames={res.mel_frames} bucket={got_bucket} "
             f"mel_ms={res.timings['mel'] * 1e3:.1f} vocoder_ms={res.timings['vocoder'] * 1e3:.1f} "
@@ -3153,7 +3184,8 @@ def phase_int8(params_tts, params_hift, scale, smi):
     maes = [float(np.abs(b.mel - d.mel).mean()) for b, d in zip(batch, direct)]
     log(f"int8 synthesize_batch of 3 (b_pad 4): frames {[b.mel_frames for b in batch]}, mel MAE "
         f"against direct synthesize max {max(maes):.3e}, launches {launches}")
-    if (launches != dict(zero, flash_attention=10 * per_step, resblock_stage=2)
+    if (launches != dict(zero, flash_attention=10 * per_step, resblock_stage=2,
+                         int8_quant_rows=10 * want_q, int8_gemm=10 * want_q)
             or [b.mel_frames for b in batch] != [d.mel_frames for d in direct]
             or not max(maes) < 1e-2):
         fail("int8 synthesize_batch failed its checks")
@@ -3172,6 +3204,89 @@ def phase_int8(params_tts, params_hift, scale, smi):
     torch.cuda.empty_cache()
     log(f"int8 phase times: {json.dumps(times)}, QuantLinear {json.dumps(lin_times)} ({smi})")
     return counts, kernel_cases
+
+
+# the estimator's int8 linears: (K, N, bias), q/k/v then o, ff_in, ff_out
+INT8_LINEARS = ((256, 512, False), (512, 256, True), (256, 1024, True), (1024, 256, True))
+INT8_ROWS = (49152, 1024)  # a batch-16 group at the 1536 bucket with CFG; a small one
+
+
+def phase_int8_kernels(smi):
+    """11d, the int8 linear's two kernels on seeded inputs at the estimator's
+    four (K, N) and INT8_ROWS rows: bit-equal to the plain composition on
+    the card (x scaled by 3 and every 7th row zero: the 1e-12 floor), one
+    launch of each kernel per call; the pair's CUDA-event and device times,
+    each kernel's device time, the bytes bound of the linear (x read once in
+    f32, w_q, the scales and the bias read, y written) and, apart, what the
+    design's own intermediate adds to it (x_q written and read back, sx),
+    the plain composition's times and torch._int_mm's alone, and the
+    wrapper's host microseconds per call. Returns the cases by name for the
+    kernel line."""
+    import torch
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import quant
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    quant_fn, gemm_fn = quant._entries()
+    cases = {}
+    for m in INT8_ROWS:
+        for k, n, has_bias in INT8_LINEARS:
+            x = torch.randn(m, k, device="cuda", generator=g) * 3
+            x[::7] = 0
+            w_q = torch.randint(-127, 128, (n, k), device="cuda", generator=g,
+                                dtype=torch.int8)
+            scale = torch.rand(n, device="cuda", generator=g) * 0.01 + 1e-4
+            bias = torch.randn(n, device="cuda", generator=g) if has_bias else None
+            kernels.reset_launch_counts()
+            got = quant.int8_linear(x, w_q, scale, bias)
+            launches = dict(kernels.LAUNCHES)
+            want = quant.linear_q_plain(x, w_q.t(), scale, bias)
+            equal = torch.equal(got, want)
+            x_q, sx = quant.quantize_rows(x)
+            sx1 = sx.reshape(-1)
+            y = torch.empty_like(got)
+
+            def quant_only():  # on the current stream: a capture's own
+                kernels.check(quant_fn(x.data_ptr(), k, x_q.data_ptr(), sx1.data_ptr(), m, k,
+                                       torch.cuda.current_stream().cuda_stream),
+                              "int8_quant_rows")
+
+            def gemm_only():
+                kernels.check(gemm_fn(x_q.data_ptr(), w_q.data_ptr(), sx1.data_ptr(),
+                                      scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                                      y.data_ptr(), m, n, k,
+                                      torch.cuda.current_stream().cuda_stream), "int8_gemm")
+
+            pair = lambda: quant.int8_linear(x, w_q, scale, bias)  # noqa: E731
+            plain = lambda: quant.linear_q_plain(x, w_q.t(), scale, bias)  # noqa: E731
+            w_t = w_q.t()
+            moved = m * k * 4 + n * k + n * 4 * (2 if has_bias else 1) + m * n * 4
+            bound_ms, bound_by = bound(moved, 2 * m * n * k, PEAK_INT8_OPS)
+            case = dict(
+                ms=cuda_time_ms(pair, 50), device_ms=graph_time_ms(pair),
+                quant_device_ms=graph_time_ms(quant_only), gemm_device_ms=graph_time_ms(gemm_only),
+                plain_ms=cuda_time_ms(plain, 20), plain_device_ms=graph_time_ms(plain),
+                library_ms=cuda_time_ms(lambda: torch._int_mm(x_q, w_t), 50),
+                library_device_ms=graph_time_ms(lambda: torch._int_mm(x_q, w_t)),
+                bound_ms=bound_ms, x_q_ms=bound(2 * m * k + 2 * m * 4, 0, PEAK_INT8_OPS)[0],
+                host_us=host_us_per_call(pair, 300))
+            case["roofline_pct"] = 100.0 * bound_ms / case["device_ms"]
+            name = f"m{m}_k{k}_n{n}"
+            cases[name] = case
+            log(f"int8 linear {k}->{n} ({'bias' if has_bias else 'no bias'}) on {m} rows: "
+                f"bit-equal to the plain composition {equal}, launches "
+                f"{launches['int8_quant_rows']} + {launches['int8_gemm']}; "
+                f"{json.dumps({c: round(v, 4) for c, v in case.items()})} (bound by {bound_by}; "
+                f"x_q_ms is the x_q and sx round trip at the bytes peak, a cost of the design "
+                f"outside bound_ms; {smi})")
+            if not equal or launches != dict({c: 0 for c in launches}, int8_quant_rows=1,
+                                             int8_gemm=1):
+                fail(f"the int8 linear kernels at {name} are not bit-equal to the plain "
+                     f"composition or did not launch once each")
+            del x, x_q, sx, sx1, y, got, want
+    torch.cuda.empty_cache()
+    return cases
 
 
 def phase_warmup_long(params_tts, params_hift, smi):
@@ -4078,6 +4193,7 @@ def main():
         "11a int8", phase_int8, params_tts, params_hift, scale, smi)
     wl_counts = timed("11b warmup_long", phase_warmup_long, params_tts, params_hift, smi)
     timed("11c host MAS", phase_host_mas, mas_inputs, smi)
+    int8_cases = timed("11d int8 linear kernels", phase_int8_kernels, smi)
     del mas_inputs
     counts = {k: counts[k] + int8_counts[k] + wl_counts[k] for k in counts}
     flash["max_abs_err"] = max(flash["max_abs_err"], int8_err)
@@ -4130,6 +4246,13 @@ def main():
                       "(the operands of both backward pallas_calls, rounded and laid out "
                       "once per backward for kernels 4 and 5)",
              launches=counts["flash_stock_bwd_prep"], **bwd["prep"]),
+        dict(name="int8_linear", route="cuda",
+             source="jyutvoice_tpu_torch/csrc/int8_linear.cu",
+             replaces="none: the JAX package's int8 product is plain XLA "
+                      "(jyutvoice_tpu/nn/quant.py::linear_q); the port's plain composition "
+                      "is nn/quant.py::linear_q_plain",
+             launches={"int8_quant_rows": counts["int8_quant_rows"],
+                       "int8_gemm": counts["int8_gemm"]}, **int8_cases),
     ]}
     log(f"phase seconds: {json.dumps(PHASE_S)}, whole run "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -491,16 +491,6 @@ inline int pick_consumers(int T, int BH, int sms, int max_nc) {
   return best;
 }
 
-inline int num_sms() {
-  static const int n = [] {
-    int dev = 0, sms = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    return sms;
-  }();
-  return n;
-}
-
 // launches the configuration pick_consumers chooses for this grid; the f32
 // staging ring holds 4 tiles at D = 64 and 2 at D = 128 (shared memory:
 // 177 / 225 KB)

@@ -552,12 +552,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1) flash_stock_bwd_sm90(const 
 // H100; `flash_fwd_sm90.cuh::pick_consumers`). D = 128 takes one.
 inline int pick_consumers(int T, int BH, int D) {
   if (D != 64) return 1;
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) == cudaSuccess)
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n;
-  }();
+  const int sms = jv::num_sms();
   constexpr long long kTileCost[3] = {0, 14, 18};
   int best = 1;
   long long best_cost = -1;

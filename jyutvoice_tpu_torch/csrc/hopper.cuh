@@ -111,6 +111,17 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// the current device's SM count, read once (132 on the H100 SXM)
+inline int num_sms() {
+  static const int n = [] {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
+}
+
 // 2^x on the special-function unit (flush-to-zero; 2 ulp)
 __device__ __forceinline__ float ex2(float x) {
   float y;

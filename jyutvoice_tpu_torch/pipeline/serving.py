@@ -254,10 +254,12 @@ def export_program(cfg: JyutVoiceConfig, params_tts, params_hift, path: str, *, 
     it to `path`; returns the ExportedProgram.
 
     The trace takes plain attention (`export_safe_cfg`; the caller's cfg is
-    left as it is), so the artifact holds no kernel launched through ctypes;
-    kernel 2 stays in it as `jyutvoice.resblock_stage` nodes. aot_compile
-    keeps kernel 1 (same-device use). The weights are JAX-layout trees: the
-    export builds its own modules on its own config."""
+    left as it is) and, for an int8 decoder tree, the int8 linear's plain
+    composition (`nn/quant.py::linear_q_plain`, torch._int_mm), so the
+    artifact holds no kernel launched through ctypes; kernel 2 stays in it
+    as `jyutvoice.resblock_stage` nodes. aot_compile keeps kernel 1 and the
+    int8 linear's kernels (same-device use). The weights are JAX-layout
+    trees: the export builds its own modules on its own config."""
     graph = build_serving_fn(
         export_safe_cfg(cfg), params_tts, params_hift, t_text=t_text, t_mel=t_mel,
         t_prompt=t_prompt, n_timesteps=n_timesteps, length_scale=length_scale,

@@ -25,9 +25,14 @@ device (kernels 1 and 2, the CPU's mel frames), `prepare_dataset.
 process_batch` on the card against the CPU at the cloning bars, and one
 `cli.train --pretrain --tb-dir` epoch at the 2048-frame bucket (kernels 3,
 4, 5; the decoder unchanged). The last single-device modules: the int8
-linear on the card (torch._int_mm; its int8 activations and int32 products
-equal the CPU's, output rtol 1e-6; padding below 17 rows, sizes off 8 and
-autograd refused), a small int8 synthesizer on the card against the CPU
+linear on the card: its plain composition (torch._int_mm) with int8
+activations and int32 products equal to the CPU's and the module within
+rtol 1e-6 of the CPU (padding below 17 rows, sizes off 8 and autograd
+refused); its two kernels (csrc/int8_linear.cu) bit-equal to the plain
+composition on the card at M = 1-49152 rows and the estimator's four
+(K, N), with and without a bias, on zero rows and halfway ties, strided and
+transposed (B, T, C) views and inside a CUDA graph, one launch of each a
+call; a small int8 synthesizer on the card against the CPU
 through kernel 1 and kernel 3 (mel MAE < 1e-2), the host MAS on a
 training step's shape bit-equal to the device MAS, and `warmup_long` on the
 card (kernel 3 per exact solve). The serving export: a captured bucket
@@ -269,7 +274,7 @@ def test_small_synthesizer_goes_through_both_kernels(cuda):
         "flash_attention": 2 * (est.num_mid_blocks + 2) * est.n_blocks,
         "resblock_stage": 3,  # base 64: all three stages have C <= 128
         "flash_stock": 0, "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
-        "flash_stock_bwd_prep": 0,
+        "flash_stock_bwd_prep": 0, "int8_quant_rows": 0, "int8_gemm": 0,
     }
 
 
@@ -419,7 +424,8 @@ def test_small_training_step_launch_counts(cuda):
     per_call = (cfg.cfm.estimator.num_mid_blocks + 2) * cfg.cfm.estimator.n_blocks
     assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0,
                                 "flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
-                                "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call}
+                                "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call,
+                                "int8_quant_rows": 0, "int8_gemm": 0}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     for n, p in model.decoder.named_parameters():
         assert torch.equal(p, decoder[n]), n
@@ -913,9 +919,9 @@ def test_train_cli_pretrain_tb_dir_on_the_card(cuda, tmp_path):
 @pytest.mark.parametrize("rows,k,n", [(2048, 256, 1024), (2048, 1024, 256), (268, 256, 512),
                                       (5, 512, 256)])
 def test_quant_linear_on_card_matches_cpu(cuda, rows, k, n):
-    """torch._int_mm on the card (5 rows: padded to 17): the int8
-    activations and the int32 products equal the CPU's, the output within
-    rtol 1e-6."""
+    """The plain composition on the card (torch._int_mm; 5 rows: padded to
+    17): the int8 activations and the int32 products equal the CPU's; the
+    module (the kernels) within rtol 1e-6 of the CPU's output."""
     import numpy as np
 
     from jyutvoice_tpu_torch.nn import quant
@@ -945,6 +951,118 @@ def test_quant_linear_on_card_refuses_what_it_cannot_do(cuda):
     mod = quant.QuantLinear(16, 8).to(cuda)
     with pytest.raises(RuntimeError, match="forward-only"):
         mod(torch.ones(32, 16, device=cuda, requires_grad=True))
+
+
+INT8_KN = [(256, 512), (512, 256), (256, 1024), (1024, 256)]
+
+
+def _int8_operands(cuda, m, k, n, bias, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed * 7919 + m + k + n)
+    x = torch.randn(m, k, device=cuda, generator=g) * 3
+    w_q = torch.randint(-127, 128, (n, k), device=cuda, generator=g, dtype=torch.int8)
+    scale = torch.rand(n, device=cuda, generator=g) * 0.01 + 1e-4
+    b = torch.randn(n, device=cuda, generator=g) if bias else None
+    return x, w_q, scale, b
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("k,n", INT8_KN)
+@pytest.mark.parametrize("m", [1, 5, 16, 17, 536, 1024, 49152])
+def test_int8_linear_kernels_bit_equal_to_plain(cuda, m, k, n, bias):
+    """The two kernels against the plain composition on the card
+    (quantize_rows, torch._int_mm, the f32 epilogue in its order), bit for
+    bit, and one launch of each per call; every 5th row zero (the 1e-12
+    floor)."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import quant
+
+    x, w_q, scale, b = _int8_operands(cuda, m, k, n, bias)
+    x[::5] = 0
+    kernels.reset_launch_counts()
+    got = quant.int8_linear(x, w_q, scale, b)
+    assert kernels.LAUNCHES["int8_quant_rows"] == 1 and kernels.LAUNCHES["int8_gemm"] == 1
+    want = quant.linear_q_plain(x, w_q.t(), scale, b)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and torch.equal(got, want)
+
+
+def test_int8_quant_rows_ties_and_zero_rows(cuda):
+    """The quantization kernel alone against quantize_rows: values that land
+    on +-0.5 after the division round half to even, an all-zero row takes
+    the 1e-12 floor, and sx and x_q are bit-equal."""
+    from jyutvoice_tpu_torch.nn import quant
+
+    k = 256
+    x = torch.randn(64, k, device=cuda) * 3
+    ties = torch.tensor([127.0, 0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 126.5, -126.5], device=cuda)
+    x[1] = 0
+    x[2] = 0
+    x[2, :ties.numel()] = ties  # amax 127: sx = 1, every tie exact
+    x[3] = ties.repeat(29)[:k] * 0.25  # sx = 0.25: ties again
+    x_q = torch.empty(64, k, dtype=torch.int8, device=cuda)
+    sx = torch.empty(64, device=cuda)
+    quant_fn, _ = quant._entries()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert quant_fn(x.data_ptr(), k, x_q.data_ptr(), sx.data_ptr(), 64, k, stream) == 0
+    want_q, want_sx = quant.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert torch.equal(x_q, want_q) and torch.equal(sx, want_sx.reshape(-1))
+    assert float(sx[1]) == float(torch.tensor(1e-12)) and not x_q[1].any()
+    assert x_q[2, :9].tolist() == [127, 0, 0, 2, -2, 2, -2, 126, -126]
+
+
+def test_int8_linear_kernels_on_views(cuda):
+    """A (B, T, C) view whose rows are strided is read in place; a
+    transposed one is copied first; both bit-equal to the plain
+    composition."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import quant
+
+    _, w_q, scale, b = _int8_operands(cuda, 1, 256, 512, True)
+    big = torch.randn(4, 300, 320, device=cuda)
+    strided = big[:, :, :256]
+    transposed = torch.randn(4, 256, 300, device=cuda).transpose(1, 2)
+    for x in (strided, transposed):
+        kernels.reset_launch_counts()
+        got = quant.int8_linear(x, w_q, scale, b)
+        assert kernels.LAUNCHES["int8_quant_rows"] == kernels.LAUNCHES["int8_gemm"] == 1
+        assert got.shape == (4, 300, 512)
+        assert torch.equal(got, quant.linear_q_plain(x, w_q.t(), scale, b))
+
+
+def test_int8_linear_kernels_in_a_cuda_graph(cuda):
+    """The pair captured in a CUDA graph and replayed on new inputs equals
+    eager calls bit for bit (a QuantLinear, as the bucket programs hold)."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import quant
+
+    x, w_q, scale, b = _int8_operands(cuda, 1536, 256, 1024, True)
+    mod = quant.QuantLinear(256, 1024).to(cuda)
+    with torch.no_grad():
+        mod.w_q.copy_(w_q)
+        mod.scale.copy_(scale)
+        mod.bias.copy_(b)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.no_grad():
+        mod(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    kernels.reset_launch_counts()
+    with torch.cuda.graph(graph, stream=side), torch.no_grad():
+        out = mod(static)
+    assert kernels.LAUNCHES["int8_quant_rows"] == kernels.LAUNCHES["int8_gemm"] == 1
+    for seed in (1, 2):
+        new = _int8_operands(cuda, 1536, 256, 1024, True, seed=seed)[0]
+        static.copy_(new)
+        graph.replay()
+        with torch.no_grad():
+            eager = mod(new)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert torch.equal(eager, quant.linear_q_plain(new, w_q.t(), scale, b))
+    assert kernels.LAUNCHES["int8_gemm"] == 3  # the capture and two eager calls
 
 
 def _int8_small_synth(device):

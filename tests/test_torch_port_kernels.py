@@ -26,6 +26,7 @@ from jyutvoice_tpu.nn.pallas.resblock import (
 from jyutvoice_tpu_torch.models.hift import ResBlock
 from jyutvoice_tpu_torch.nn.flash_attention import flash_attention
 from jyutvoice_tpu_torch.nn.flash_stock import flash_stock, flash_stock_bwd_prepare
+from jyutvoice_tpu_torch.nn.quant import QuantLinear
 from jyutvoice_tpu_torch.nn.resblock_stage import (
     chain_halo,
     pack_stage_weights,
@@ -176,9 +177,11 @@ def test_wrappers_take_plain_path_only_on_cpu():
     flash_stock(qg, q, q, torch.tensor([8], dtype=torch.int32), scale=0.125).sum().backward()
     q64 = torch.zeros(1, 64, 1, 64)  # the kernels' tile: T a multiple of 64
     flash_stock_bwd_prepare(q64, q64, q64, q64, torch.ones(1, 1, 64), torch.ones(1, 1, 64))
+    QuantLinear(16, 8)(torch.ones(3, 16))  # the int8 linear's plain composition
     assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0, "flash_stock": 0,
                                 "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
-                                "flash_stock_bwd_prep": 0}
+                                "flash_stock_bwd_prep": 0, "int8_quant_rows": 0,
+                                "int8_gemm": 0}
     assert not kernels._LIBS
 
 

@@ -290,3 +290,179 @@ def test_int8_synthesize_matches_jax(int8_synths):
          {"text": "佢", "lang": "yue", "phone": "keoi5"}], n_timesteps=2)
     assert batch[0].mel_frames == ref.mel_frames
     assert np.abs(batch[0].mel - ref.mel).mean() < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# the int8 linear's kernels (csrc/int8_linear.cu): what the CPU can check
+# ---------------------------------------------------------------------------
+
+
+def _fake_cuda(k, n, *, x_dtype=torch.float32, w_dtype=torch.int8, rows=4, bias=True):
+    """Fake CUDA tensors (no device needed) for the kernel entry's checks."""
+    x = torch.empty(rows, k, dtype=x_dtype, device="cuda")
+    w_q = torch.empty(n, k, dtype=w_dtype, device="cuda")
+    scale = torch.empty(n, device="cuda")
+    return x, w_q, scale, torch.empty(n, device="cuda") if bias else None
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(k=24, n=64), "inner size a multiple of 16"),
+    (dict(k=1040, n=64), "inner size a multiple of 16 up to 1024"),
+    (dict(k=256, n=12), "outer size a multiple of 8"),
+    (dict(k=256, n=64, x_dtype=torch.float64), "must be float32"),
+    (dict(k=256, n=64, x_dtype=torch.bfloat16), "must be float32"),
+    (dict(k=256, n=64, w_dtype=torch.uint8), "w_q int8"),
+])
+def test_int8_kernel_entry_refuses_what_it_does_not_take(case, match):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from jyutvoice_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    with FakeTensorMode():
+        args = _fake_cuda(**case)
+        with pytest.raises(ValueError, match=match):
+            pq.int8_linear(*args)
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_int8_kernel_entry_refuses_layouts_and_cpu_tensors():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x, w_q, scale, bias = _fake_cuda(256, 512)
+        with pytest.raises(ValueError, match="contiguous"):  # the JAX (in, out) leaf
+            pq.int8_linear(x, torch.empty(256, 512, dtype=torch.int8, device="cuda").t(),
+                           scale, bias)
+        with pytest.raises(ValueError, match=r"\(512,\)"):
+            pq.int8_linear(x, w_q, torch.empty(256, device="cuda"), bias)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            pq.int8_linear(x, w_q, scale, torch.empty(512))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        pq.int8_linear(torch.ones(4, 256), torch.ones(512, 256, dtype=torch.int8),
+                       torch.ones(512), None)
+
+
+def test_gemm_entry_takes_no_tile_argument():
+    """No knob: one tile shape serves every (M, N), so the GEMM's C entry
+    takes the operands, M, N, K and the stream, and the wrapper the tensors
+    alone."""
+    import ctypes
+    import inspect
+    import os
+    import re
+
+    from jyutvoice_tpu_torch import kernels
+
+    assert list(inspect.signature(pq.int8_linear).parameters) == ["x", "w_q", "scale", "bias"]
+    assert pq._GEMM_ARGTYPES == [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with open(os.path.join(kernels.CSRC, "int8_linear.cu")) as f:
+        src = f.read()
+    sig = re.search(r'extern "C" int jv_int8_gemm\(([^)]*)\)', src).group(1)
+    params = [p.split()[-1].lstrip("*") for p in sig.split(",")]
+    assert params == ["xq", "w", "sx", "scale", "bias", "y", "M", "N", "K", "stream"]
+
+
+def test_linear_q_hands_on_the_module_layout(monkeypatch):
+    """`linear_q` gives `_linear_q` the contiguous (out, in) buffer a
+    QuantLinear holds, whatever the layout of the JAX (in, out) leaf."""
+    seen = []
+    monkeypatch.setattr(pq, "_linear_q", lambda x, w_q, scale, bias: seen.append(w_q))
+    leaf = torch.arange(256 * 96, dtype=torch.int32).remainder(255).sub(127).to(
+        torch.int8).reshape(256, 96)
+    for w in (leaf, leaf.t().contiguous().t()):
+        pq.linear_q({"w_q": w, "scale": torch.ones(96)}, torch.zeros(3, 256))
+    for w in seen:
+        assert w.shape == (96, 256) and w.is_contiguous() and torch.equal(w, leaf.t())
+
+
+def test_cuda_tensor_outside_a_trace_takes_the_kernels(monkeypatch):
+    """The route is the device and the trace alone: a CUDA tensor (here a
+    fake one used outside its mode, so no trace is active) goes to the
+    kernels' wrapper, whatever its Python type; the same call inside the
+    mode traces the plain composition."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    calls = []
+    monkeypatch.setattr(pq, "int8_linear", lambda *a: calls.append(a) or "kernels")
+    mode = FakeTensorMode()
+    with mode:
+        x = torch.empty(2, 20, 256, device="cuda")
+        w_q = torch.empty(512, 256, dtype=torch.int8, device="cuda")
+        scale = torch.empty(512, device="cuda")
+        assert pq._linear_q(x, w_q, scale, None).shape == (2, 20, 512)
+    assert not calls
+    assert type(x) is not torch.Tensor and x.is_cuda
+    assert pq._linear_q(x, w_q, scale, None) == "kernels"
+    assert len(calls) == 1 and calls[0][0] is x
+
+
+def test_cpu_int8_linear_is_the_plain_composition_bit_for_bit(monkeypatch):
+    """A CPU tensor takes torch._int_mm once a call and gives the parent's
+    composition (quantize_rows, the int32 product, then acc * sx * scale +
+    b in f32) bit for bit, on a (B, T, C) view whose rows are strided."""
+    calls = []
+    int_mm = torch._int_mm
+
+    def spy(a, b):
+        calls.append(a.shape)
+        return int_mm(a, b)
+
+    rng = np.random.default_rng(18)
+    tp = {n: torch.from_numpy(np.array(v)) for n, v in pq.quantize_linear(
+        {"w": rng.standard_normal((256, 96)).astype(np.float32),
+         "b": rng.standard_normal(96).astype(np.float32)}).items()}
+    big = torch.from_numpy(rng.standard_normal((2, 37, 320)).astype(np.float32) * 3)
+    x = big[:, :, :256]  # rows at a stride of 320
+    x_q, sx = pq.quantize_rows(x.reshape(-1, 256))
+    want = (int_mm(x_q, tp["w_q"]).float() * sx * tp["scale"] + tp["b"]).reshape(2, 37, 96)
+    monkeypatch.setattr(torch, "_int_mm", spy)
+    got = pq.linear_q(tp, x)
+    mod = pq.QuantLinear(256, 96)
+    from_jax.load_jax_params(mod, {k: v.numpy() for k, v in tp.items()})
+    got_mod = mod(x)
+    assert calls == [(74, 256), (74, 256)]
+    assert torch.equal(got, want) and torch.equal(got_mod, want)
+
+
+def test_rows_reads_strided_rows_in_place_and_copies_the_rest():
+    big = torch.zeros(2, 5, 320)
+    x2 = pq._rows(big[:, :, :256], 256)
+    assert x2.shape == (10, 256) and x2.stride() == (320, 1)
+    assert x2.data_ptr() == big.data_ptr()
+    t = torch.zeros(2, 256, 5).transpose(1, 2)  # (B, T, C) of a (B, C, T): no row stride
+    x2 = pq._rows(t, 256)
+    assert x2.is_contiguous() and x2.data_ptr() != t.data_ptr()
+    odd = torch.zeros(6, 258)[:, :256]  # a row stride off 4 floats (16 bytes)
+    assert pq._rows(odd, 256).is_contiguous()
+
+
+def test_traced_int8_linear_takes_the_plain_composition():
+    """Fake CUDA tensors (a torch.export trace's) never reach the kernel
+    library: `_linear_q` traces the plain composition."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from jyutvoice_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    libs = dict(kernels._LIBS)
+    with FakeTensorMode():
+        x = torch.empty(2, 40, 256, device="cuda")
+        w_q = torch.empty(512, 256, dtype=torch.int8, device="cuda")
+        y = pq._linear_q(x, w_q, torch.empty(512, device="cuda"), None)
+    assert y.shape == (2, 40, 512) and y.dtype == torch.float32 and y.is_cuda
+    assert not any(kernels.LAUNCHES.values()) and kernels._LIBS == libs
+
+
+def test_int8_kernel_source_is_listed():
+    import os
+
+    from jyutvoice_tpu_torch import kernels
+
+    assert "int8_linear" in kernels.KERNEL_SOURCES
+    assert kernels.KERNEL_NAMES[-2:] == ("int8_quant_rows", "int8_gemm")
+    assert {"int8_quant_rows", "int8_gemm"} <= set(kernels.LAUNCHES)
+    with open(os.path.join(kernels.CSRC, "int8_linear.cu")) as f:
+        src = f.read()
+    for entry in ("jv_int8_quant_rows", "jv_int8_gemm"):
+        assert f'extern "C" int {entry}(' in src

@@ -19,7 +19,10 @@ on the CPU at the small configuration.
     cached constants a vocoder call reads;
   * the prompt graft on the device equals the host loop it replaced, bit
     for bit, and the whole `synthesize_mel` at batch 2 JAX's;
-  * an export run before any eager call leaves no FakeTensor in a cache.
+  * an export run before any eager call leaves no FakeTensor in a cache;
+  * an int8 decoder tree exports: the trace takes the int8 linear's plain
+    composition (`torch._int_mm` nodes, no kernel launch) and the reloaded
+    artifact equals the eager graph.
 One export of the 2-step bucket serves the whole file.
 """
 
@@ -387,3 +390,31 @@ def test_export_first_leaves_no_fake_tensor_in_a_cache(tmp_path):
     assert got["export"].keys() == got["eager"].keys()
     for key, want in got["eager"].items():
         np.testing.assert_array_equal(got["export"][key], want, err_msg=key)
+
+
+def test_export_traces_an_int8_tree(trees, tmp_path):
+    """export_program handed an int8 decoder tree traces it rather than
+    refusing: each int8 linear goes into the graph as its plain composition
+    (one torch._int_mm node per QuantLinear and step), and the reloaded
+    artifact equals the eager serving graph on the export's config (1e-6)."""
+    from jyutvoice_tpu_torch.nn.quant import QuantLinear, quantize_estimator
+
+    tts, hift = trees
+    qtts = {**tts, "decoder": quantize_estimator(jax.tree_util.tree_map(np.asarray,
+                                                                        tts["decoder"]))}
+    path = str(tmp_path / "int8.pt2")
+    program = serving.export_program(PORT_CFG, qtts, hift, path, t_text=T_TEXT, t_mel=T_MEL,
+                                     n_timesteps=1, device="cpu")
+    eager = serving.build_serving_fn(serving.export_safe_cfg(PORT_CFG), qtts, hift,
+                                     t_text=T_TEXT, t_mel=T_MEL, n_timesteps=1, device="cpu")
+    n_q = sum(isinstance(m, QuantLinear) for m in eager.modules())
+    mm = [n for n in program.graph.nodes
+          if n.op == "call_function" and "_int_mm" in str(n.target)]
+    assert n_q and len(mm) == n_q
+    args = _t(_inputs(3))
+    got = serving.load_program(path)(*args)
+    with torch.inference_mode():
+        want = eager(*args)
+    for o, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(o, w, atol=1e-6, rtol=0)
+    assert torch.equal(got[2], want[2])
