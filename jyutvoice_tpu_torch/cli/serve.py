@@ -10,7 +10,8 @@ Example:
 
 --ckpt / --hift / --flow-encoder take `.npz` parameter trees or the
 reference's `.pt` / `.ckpt` files (cli/infer.py::load_params);
---random-init serves random weights drawn with seeds 0 and 1. Runs on the
+--config names the model's configuration (a JSON file; the DiT decoder's
+is one); --random-init serves random weights drawn with seeds 0 and 1. Runs on the
 GPU unless --device cpu is given. SIGTERM or SIGINT drains the server:
 requests in flight finish, new ones are refused.
 """
@@ -30,6 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="JyutVoice HTTP server (PyTorch port)")
     ap.add_argument("--ckpt", help="tts weights (.npz tree or torch .ckpt/.pt)")
     ap.add_argument("--hift", help="vocoder weights (.npz tree or torch .pt)")
+    ap.add_argument("--config", help="the model's configuration as JSON (config.py::"
+                    "load_config), e.g. portbench/configs/jyutvoice-cv3dit.json for CosyVoice "
+                    "3's DiT decoder; default the base configuration")
     ap.add_argument("--random-init", action="store_true",
                     help="serve random weights (smoke and load testing)")
     ap.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
@@ -117,12 +121,12 @@ def main(argv=None, cfg=None) -> None:
             )
 
     from jyutvoice_tpu_torch.cli.infer import load_params
-    from jyutvoice_tpu_torch.config import JyutVoiceConfig
+    from jyutvoice_tpu_torch.config import JyutVoiceConfig, load_config
     from jyutvoice_tpu_torch.pipeline.http_server import TTSServer, device_name
     from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
     from jyutvoice_tpu_torch.weights import random_init
 
-    cfg = cfg or JyutVoiceConfig()
+    cfg = cfg or (load_config(args.config) if args.config else JyutVoiceConfig())
     if args.random_init:
         log.warning("serving RANDOM weights (smoke and load testing only)")
         params_tts = random_init.init_tts_tree(cfg.tts, seed=0)

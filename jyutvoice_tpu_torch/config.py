@@ -9,6 +9,8 @@ as inert fields.
 from __future__ import annotations
 
 import dataclasses
+import json
+import typing
 from typing import Optional, Tuple
 
 
@@ -108,8 +110,50 @@ class EstimatorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """CosyVoice 3's flow-matching estimator, a DiT adapted from F5-TTS
+    (FunAudioLLM/CosyVoice `cosyvoice/flow/DiT/dit.py`, `modules.py`; the
+    widths of Fun-CosyVoice3-0.5B's `cosyvoice3.yaml`, flow.decoder.estimator),
+    with no long skip. `models/dit.py` runs it where `CFMConfig.estimator_kind`
+    is "dit".
+
+    rope_heads: the heads whose q and k RoPE turns. CosyVoice's
+    AttnProcessor rotates the projection before the heads are split, so only
+    the first dim_head channels turn: 1 (F5-TTS names the same choice
+    `pe_attn_head`). `heads` turns every head."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    mel_dim: int = 80
+    mu_dim: int = 80
+    spk_dim: int = 80
+    out_channels: int = 80
+    static_chunk_size: int = 50
+    freq_embed_dim: int = 256  # sinusoidal features of the timestep
+    conv_kernel: int = 31  # CausalConvPositionEmbedding's two grouped convs
+    conv_groups: int = 16
+    rope_heads: int = 1
+
+    @property
+    def in_dim(self) -> int:
+        # cat[x, cond, mu, spks]
+        return 2 * self.mel_dim + self.mu_dim + self.spk_dim
+
+
+ESTIMATOR_KINDS = ("unet", "dit")
+
+
+@dataclasses.dataclass(frozen=True)
 class CFMConfig:
-    """Conditional flow matching (configs/base.yaml:76-87)."""
+    """Conditional flow matching (configs/base.yaml:76-87).
+
+    estimator_kind selects the estimator: "unet", the U-Net of `estimator`
+    (JyutVoice's), or "dit", the DiT of `dit` (CosyVoice 3's), which takes
+    its attention routes from `estimator`'s backend and band settings.
+    Neither field is in the JAX package's config."""
 
     in_channels: int = 240
     n_spks: int = 1
@@ -122,6 +166,22 @@ class CFMConfig:
     # Fixed noise buffer length: 50 fps * 300 s (flow_matching.py:354)
     rand_noise_frames: int = 15000
     estimator: EstimatorConfig = dataclasses.field(default_factory=EstimatorConfig)
+    estimator_kind: str = "unet"
+    dit: DiTConfig = dataclasses.field(default_factory=DiTConfig)
+
+
+def require_unet(cfm_or_estimator, path: str) -> None:
+    """Raise for a path that runs the U-Net estimator only, given a
+    CFMConfig that selects the DiT or a DiT module (whose `cfg` is a
+    DiTConfig)."""
+    kind = getattr(cfm_or_estimator, "estimator_kind", None)
+    if kind is None:
+        kind = "dit" if isinstance(getattr(cfm_or_estimator, "cfg", None), DiTConfig) else "unet"
+    if kind != "unet":
+        raise NotImplementedError(
+            f"{path} runs the U-Net estimator only; this decoder is the DiT "
+            f"(tts.cfm.estimator_kind={kind!r})"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,3 +309,29 @@ class JyutVoiceConfig:
 
 
 DEFAULT_CONFIG = JyutVoiceConfig()
+
+
+def config_from_dict(values: dict, cls=JyutVoiceConfig):
+    """A config from nested dicts of its fields (a JSON file's), lists as
+    tuples; fields left out keep their defaults, unknown keys raise."""
+    hints = typing.get_type_hints(cls)
+    names = {f.name for f in dataclasses.fields(cls)}
+    extra = sorted(set(values) - names)
+    if extra:
+        raise ValueError(f"{cls.__name__} has no fields {extra}")
+    kw = {}
+    for name, v in values.items():
+        if dataclasses.is_dataclass(hints[name]):
+            v = config_from_dict(v, hints[name])
+        elif isinstance(v, list):
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        kw[name] = v
+    return cls(**kw)
+
+
+def load_config(path: str) -> JyutVoiceConfig:
+    """A JyutVoiceConfig from a JSON file: the config's nested fields at
+    the top level, or under "model" (a benchmark configuration file)."""
+    with open(path, encoding="utf-8") as f:
+        values = json.load(f)
+    return config_from_dict(values.get("model", values))

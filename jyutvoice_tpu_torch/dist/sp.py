@@ -46,6 +46,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from jyutvoice_tpu_torch.config import require_unet
 from jyutvoice_tpu_torch.dist.mesh import Mesh
 
 Tensor = torch.Tensor
@@ -231,6 +232,7 @@ def shard_params(params: nn.Module, mesh: Mesh) -> MeshParams:
     """Place a loaded estimator on the mesh (`sp_param_shardings`): the
     followers receive its weights once, by broadcast from rank 0; rank 0
     keeps using `params` itself unless the mesh has a model axis."""
+    require_unet(params, "dist/ (the decoder on a mesh)")
     specs = sp_param_shardings(params, mesh)  # raises for an int8 estimator under TP
     tp = mesh.axis_size(MODEL_AXIS) > 1 and any(v is not None for v in specs.values())
     key = f"decoder-{next(_KEYS)}"
@@ -330,6 +332,7 @@ def sp_cfm_solve(
     ms on the host clock (scatter and gather included), the ms spent in
     collectives (when `mesh.timing` is set, which synchronizes the device
     around each; else 0) and the peak device bytes."""
+    require_unet(cfm_cfg, "the sequence-parallel solve (dist/sp.py)")
     if attention == "ring":
         if MODEL_AXIS in mesh.axis_names and mesh.shape[MODEL_AXIS] > 1:
             raise ValueError("ring attention composes with 1-D seq meshes "

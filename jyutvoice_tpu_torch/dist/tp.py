@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jyutvoice_tpu_torch.config import require_unet
 from jyutvoice_tpu_torch.dist.mesh import Mesh
 from jyutvoice_tpu_torch.nn import core
 from jyutvoice_tpu_torch.nn.attention import PlainMHA
@@ -145,6 +146,7 @@ def tp_shard_estimator(est: nn.Module, mesh: Mesh, axis: str = "model") -> nn.Mo
     """This rank's TP copy of a loaded estimator (the module given is left
     as it is): every transformer block's attention over H/n heads and its
     feed-forward over a 1/n hidden slice, the rest replicated."""
+    require_unet(est, "tensor parallelism (dist/tp.py)")
     if _is_quantized(est):
         raise ValueError(INT8_TP_ERROR)
     n, r, comm = mesh.axis_size(axis), mesh.axis_index(axis), mesh.comm(axis)

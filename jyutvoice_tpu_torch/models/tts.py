@@ -3,7 +3,9 @@ training losses.
 
 The counterpart of the JAX package's `models/tts.py`: `synthesize_mel` at
 padded bucket shapes (text bucket T_text, mel bucket T_mel, prompt bucket
-T_prompt) and `compute_losses`. Two details of synthesis are kept exactly:
+T_prompt) and `compute_losses`. The decoder is the configuration's
+estimator: the U-Net, or CosyVoice 3's DiT (`models/dit.py`), which the JAX
+package lacks. Two details of synthesis are kept exactly:
   * durations are ceil(w) * length_scale, i.e. the scale comes AFTER the ceil,
     so fractional "durations" feed the cumulative sum;
   * the generated frames are grafted right after the TRUE prompt length, so
@@ -19,8 +21,9 @@ import torch
 from torch import nn
 
 from jyutvoice_tpu_torch.align import maximum_path
-from jyutvoice_tpu_torch.config import TTSConfig
+from jyutvoice_tpu_torch.config import ESTIMATOR_KINDS, CFMConfig, TTSConfig
 from jyutvoice_tpu_torch.models.cfm import cfm_forward, cfm_loss
+from jyutvoice_tpu_torch.models.dit import DiT
 from jyutvoice_tpu_torch.models.duration import DurationPredictor, duration_loss
 from jyutvoice_tpu_torch.models.estimator import Estimator
 from jyutvoice_tpu_torch.models.text_encoder import TextEncoder
@@ -30,13 +33,23 @@ from jyutvoice_tpu_torch.utils.observability import span
 Tensor = torch.Tensor
 
 
+def make_estimator(cfm: CFMConfig) -> nn.Module:
+    """The configuration's estimator: the U-Net or the DiT."""
+    if cfm.estimator_kind == "unet":
+        return Estimator(cfm.estimator)
+    if cfm.estimator_kind == "dit":
+        return DiT(cfm.dit, cfm.estimator)
+    raise ValueError(f"unknown estimator_kind {cfm.estimator_kind!r} "
+                     f"(one of {', '.join(ESTIMATOR_KINDS)})")
+
+
 class TTS(nn.Module):
     def __init__(self, cfg: TTSConfig):
         super().__init__()
         self.cfg = cfg
         self.encoder = TextEncoder(cfg.encoder)
         self.dp = DurationPredictor(cfg.dp)
-        self.decoder = Estimator(cfg.cfm.estimator)
+        self.decoder = make_estimator(cfg.cfm)
         self.spk_embed_affine_layer = core.Linear(cfg.spk_embed_dim, cfg.output_size)
 
 

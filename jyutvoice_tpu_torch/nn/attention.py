@@ -1,8 +1,9 @@
 """Attention: masked SDPA, partial-RoPE self-attention (text encoder), the
-plain diffusers-style attention of the CFM estimator, the banded
-(chunk-local) attention of the long-form gate and the ESPnet
-relative-position attention of the flow encoder, whole or one chunk at a
-time over a KV cache (`rel_mha_chunk`).
+interleaved-pair RoPE of the DiT estimator, the plain diffusers-style
+attention of the CFM estimator and its core by backend (`attention_core`,
+which the DiT shares), the banded (chunk-local) attention of the long-form
+gate and the ESPnet relative-position attention of the flow encoder, whole
+or one chunk at a time over a KV cache (`rel_mha_chunk`).
 
 The counterpart of the JAX package's `nn/attention.py`. The modules take and
 return channels-last (B, T, C); heads are split internally.
@@ -71,6 +72,24 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor, d: int) -> Tensor:
     neg_half = torch.cat([-x_rope[..., half:], x_rope[..., :half]], dim=-1)
     x_rope = x_rope * cos + neg_half * sin
     return torch.cat([x_rope, x_pass], dim=-1)
+
+
+def rope_pairs_cos_sin(t: int, d: int, base: float = 10_000.0, device=None):
+    """cos/sin tables (T, d) of x-transformers' rotary layout (F5-TTS's and
+    CosyVoice 3's DiT): interleaved pairs (2i, 2i + 1) turn by
+    t * base^(-2i/d)."""
+    theta = 1.0 / (base ** (torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+    ang = torch.arange(t, dtype=torch.float32, device=device)[:, None] * theta[None, :]
+    ang = torch.repeat_interleave(ang, 2, dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope_pairs(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """Turn the interleaved pairs of x's last dim, d = cos.shape[-1] wide:
+    (x0, x1) -> (x0 cos - x1 sin, x1 cos + x0 sin). cos and sin broadcast
+    against x."""
+    rot = torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).flatten(-2)
+    return x * cos + rot * sin
 
 
 class RopeMHA(nn.Module):
@@ -166,14 +185,13 @@ def banded_sdpa(
     return out.reshape(b, h, t, d)
 
 
-def banded_mha(
-    attn: "PlainMHA", x: Tensor, lengths: Tensor, n_heads: int, *, chunk: int,
-    left: int, right: int = 0, shard=None,
+def banded_core(
+    q: Tensor, k: Tensor, v: Tensor, lengths: Tensor, *, chunk: int, left: int,
+    right: int = 0, shard=None,
 ) -> Tensor:
-    """`PlainMHA`'s projections around `banded_sdpa`. x (B, T, C); shard:
-    this rank's `dist/sp.py::SeqShard` inside a sequence-parallel solve,
-    whose neighbours supply the band's keys past the shard's edges."""
-    q, k, v = attn.project(x, n_heads)
+    """`banded_sdpa` on (B, T, H, D) projections -> (B, T, H*D). shard: this
+    rank's `dist/sp.py::SeqShard` inside a sequence-parallel solve, whose
+    neighbours supply the band's keys past the shard's edges."""
     offset = 0
     if shard is not None:
         kv = torch.stack([k, v])
@@ -184,7 +202,44 @@ def banded_mha(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lengths,
         chunk=chunk, left=left, right=right, halo=shard is not None, q_offset=offset,
     )
-    return attn.o(merge_heads(out))
+    return merge_heads(out)
+
+
+def attention_core(
+    q: Tensor, k: Tensor, v: Tensor, lengths: Tensor, backend: str = "flash",
+    chunk_size: int = 0, num_left_chunks: int = -1, band=None,
+    bias: Optional[Tensor] = None, shard=None, gather_kv=None, ring=None,
+) -> Tensor:
+    """The attention of (B, T, H, D) projections by `backend` (the
+    arguments of `PlainMHA.forward`) -> (B, T, H*D) merged heads."""
+    if backend == "banded":
+        chunk, left, right = band
+        return banded_core(q, k, v, lengths, chunk=chunk, left=left, right=right, shard=shard)
+    b, t = q.shape[:2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if backend == "ring":
+        from jyutvoice_tpu_torch.dist.ring import ring_attention_local
+
+        comm, kv_valid = ring
+        out = ring_attention_local(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), kv_valid, comm, scale)
+        return merge_heads(out)
+    if backend == "plain":
+        if gather_kv is not None:
+            k, v = gather_kv(k, v)
+        out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias,
+                   scale=scale)
+        return merge_heads(out)
+    if backend == "flash_stock":
+        out = flash_stock(q, k, v, lengths, scale=scale)
+    elif backend == "flash":
+        out = flash_attention(
+            q, k, v, lengths, scale=scale, chunk_size=chunk_size,
+            num_left_chunks=num_left_chunks,
+        )
+    else:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    return out.view(b, t, -1)
 
 
 class PlainMHA(nn.Module):
@@ -194,7 +249,7 @@ class PlainMHA(nn.Module):
     "flash" is kernel 1 (`flash_attention`, key padding and the streaming
     chunk rule), "flash_stock" is kernel 3 (`flash_stock`, segment ids from
     the lengths; differentiable through kernels 4 and 5), "banded" is
-    `banded_mha` and "plain" is `sdpa` with an additive mask bias, the
+    `banded_core` and "plain" is `sdpa` with an additive mask bias, the
     counterpart of the JAX package's XLA `plain_mha`, which training takes
     where the stock-flash gate does not fire. The kernels run on CUDA
     tensors and their plain versions on CPU tensors.
@@ -230,36 +285,10 @@ class PlainMHA(nn.Module):
         neighbours' keys, gather_kv gathers K and V along T for the plain
         route (bias (B, 1, T/n, T)), and ring is the "ring" backend's
         (collectives, (B, T/n) key mask)."""
-        if backend == "banded":
-            chunk, left, right = band
-            return banded_mha(self, x, lengths, n_heads, chunk=chunk, left=left, right=right,
-                              shard=shard)
-        b, t, _ = x.shape
         q, k, v = self.project(x, n_heads)
-        scale = 1.0 / math.sqrt(q.shape[-1])
-        if backend == "ring":
-            from jyutvoice_tpu_torch.dist.ring import ring_attention_local
-
-            comm, kv_valid = ring
-            out = ring_attention_local(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), kv_valid, comm, scale)
-            return self.o(merge_heads(out))
-        if backend == "plain":
-            if gather_kv is not None:
-                k, v = gather_kv(k, v)
-            out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias,
-                       scale=scale)
-            return self.o(merge_heads(out))
-        if backend == "flash_stock":
-            out = flash_stock(q, k, v, lengths, scale=scale)
-        elif backend == "flash":
-            out = flash_attention(
-                q, k, v, lengths, scale=scale, chunk_size=chunk_size,
-                num_left_chunks=num_left_chunks,
-            )
-        else:
-            raise ValueError(f"unknown attention backend {backend!r}")
-        return self.o(out.view(b, t, -1))
+        return self.o(attention_core(
+            q, k, v, lengths, backend, chunk_size=chunk_size, num_left_chunks=num_left_chunks,
+            band=band, bias=bias, shard=shard, gather_kv=gather_kv, ring=ring))
 
 
 # ---------------------------------------------------------------------------

@@ -76,7 +76,11 @@ def quantize_estimator(params: Dict) -> Dict:
     """Quantize attention q/k/v/o and ff_in/ff_out of every transformer block
     of an estimator tree; the convs, norms and time MLP stay f32 (a small
     share of the operations). Leaves that are not quantized are the input's
-    own arrays."""
+    own arrays. The U-Net's tree only: a DiT tree has no int8 path."""
+    if "down" not in params:
+        raise NotImplementedError(
+            "quantize_estimator quantizes the U-Net estimator's tree; this tree "
+            f"(keys {sorted(params)}) is another estimator's, which has no int8 path")
 
     def q_block(blk):
         return {

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from jyutvoice_tpu_torch import kernels
-from jyutvoice_tpu_torch.config import JyutVoiceConfig
+from jyutvoice_tpu_torch.config import JyutVoiceConfig, require_unet
 from jyutvoice_tpu_torch.models import hift as hift_mod
 from jyutvoice_tpu_torch.models import tts as tts_mod
 from jyutvoice_tpu_torch.pipeline.synthesize import disable_tf32
@@ -115,6 +115,7 @@ class ServingGraph(nn.Module):
                  t_mel: int, t_prompt: int = 0, n_timesteps: int = 10,
                  length_scale: float = 1.0, device="cuda"):
         super().__init__()
+        require_unet(cfg.tts.cfm, "the serving export (bucket graphs and programs)")
         device = torch.device(device)
         if device.type == "cuda":
             disable_tf32()

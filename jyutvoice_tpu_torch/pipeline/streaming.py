@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from jyutvoice_tpu_torch.config import FlowEncoderConfig, JyutVoiceConfig
+from jyutvoice_tpu_torch.config import FlowEncoderConfig, JyutVoiceConfig, require_unet
 from jyutvoice_tpu_torch.models import hift as hift_mod
 from jyutvoice_tpu_torch.models import tts as tts_mod
 from jyutvoice_tpu_torch.models.cfm import cosine_t_span, solve_euler_cfg
@@ -282,6 +282,7 @@ class StreamingSynthesizer:
         pcm16: bool = False,
         device="cuda",
     ):
+        require_unet(cfg.tts.cfm, "streaming synthesis")
         if chunk_frames <= OVERLAP:
             # every chunk would take the emit-everything branch and the
             # crossfade would never run (seams at every chunk boundary)

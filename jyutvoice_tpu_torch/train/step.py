@@ -38,7 +38,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from jyutvoice_tpu_torch.config import TrainConfig, TTSConfig
+from jyutvoice_tpu_torch.config import TrainConfig, TTSConfig, require_unet
 from jyutvoice_tpu_torch.models.tts import TTS, compute_losses
 from jyutvoice_tpu_torch.nn import core
 
@@ -212,6 +212,7 @@ class Trainer:
 
     def __init__(self, model: TTS, train_cfg: TrainConfig, generator: torch.Generator,
                  train_dropout: bool = True, mesh=None):
+        require_unet(model.cfg.cfm, "the training step")
         self.model = model
         self.train_cfg = train_cfg
         self.generator = generator

@@ -14,7 +14,8 @@ kept by the recorder itself, and not as `record_function` ranges, because
 those exist only while a profiler runs and the engine's host time is read
 without one. Nothing is recorded while torch.export or dynamo traces
 (`kernels.tracing()`). Names starting with `wait.` mark the host blocked on
-the device.
+the device. `ESTIMATOR_ROWS` counts the DiT estimator's frame rows, valid
+and padded, while the recorder is on.
 
 `trace` records a `torch.profiler` trace (host and, on the GPU, device
 activity) as a Chrome-trace JSON that Perfetto and TensorBoard's profiler
@@ -29,7 +30,7 @@ import itertools
 import logging
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,6 +138,44 @@ def disable() -> None:
 
 def drain() -> List[Span]:
     return RECORDER.drain()
+
+
+class RowCounter:
+    """The frame rows an estimator computed and how many of them were
+    valid, counted while the recorder is on: rows from shapes on the host,
+    valid rows summed into a device tensor (one per device) that only
+    `read` brings back, so counting waits for nothing."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def add(self, rows: int, mask: torch.Tensor) -> None:
+        """One call over `rows` frame rows whose validity is `mask`."""
+        if not RECORDER.on or kernels.tracing():
+            return
+        valid = mask.sum(dtype=torch.float64)
+        with self._lock:
+            self.rows += rows
+            acc = self._valid.get(mask.device)
+            if acc is None:
+                self._valid[mask.device] = valid
+            else:
+                acc.add_(valid)
+
+    def read(self) -> Tuple[int, float]:
+        """(rows, valid rows) so far; reads the device sums back."""
+        with self._lock:
+            return self.rows, sum(float(v) for v in self._valid.values())
+
+    def reset(self) -> None:
+        with self._lock:
+            self.rows = 0
+            self._valid: Dict[torch.device, torch.Tensor] = {}
+
+
+# the DiT estimator's rows (`models/dit.py`)
+ESTIMATOR_ROWS = RowCounter()
 
 
 @contextlib.contextmanager

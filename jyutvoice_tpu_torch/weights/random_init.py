@@ -1,7 +1,8 @@
 """Seeded random parameter trees in the JAX package's layout, made with numpy.
 
 `init_tts_tree` / `init_hift_tree` give trees with the same paths and shapes
-as the JAX package's `init_tts` / `init_hift` and the same distributions
+as the JAX package's `init_tts` / `init_hift` (a DiT decoder's, which the
+JAX package lacks, in the layout of `models/dit.py`) and the same distributions
 (torch's default Linear/Conv init, unit norms, unit snake alphas, a zero
 prenet projection), drawn from `numpy.random.default_rng(seed)`; so do
 `init_flow_encoder_tree`, `init_campplus_tree` and `init_s3_tree` for the
@@ -18,6 +19,7 @@ import math
 import numpy as np
 
 from jyutvoice_tpu_torch.config import (
+    DiTConfig,
     DurationPredictorConfig,
     EstimatorConfig,
     FlowEncoderConfig,
@@ -170,13 +172,43 @@ def _estimator(ini: _Init, cfg: EstimatorConfig):
     }
 
 
+def _dit(ini: _Init, cfg: DiTConfig):
+    """The DiT's tree (`models/dit.py`). Every linear takes torch's default
+    bounds, the adaLN linears and proj_out too: the published
+    initialisation zeroes those, which would make a random model's
+    velocity zero."""
+    d, inner, hidden = cfg.dim, cfg.heads * cfg.dim_head, cfg.ff_mult * cfg.dim
+
+    def block():
+        return {
+            "ada": ini.linear(d, 6 * d),
+            "attn": {**{n: ini.linear(d, inner) for n in ("q", "k", "v")},
+                     "o": ini.linear(inner, d)},
+            "ff_in": ini.linear(d, hidden),
+            "ff_out": ini.linear(hidden, d),
+        }
+
+    cin = d // cfg.conv_groups
+    return {
+        "time_mlp": {"linear1": ini.linear(cfg.freq_embed_dim, d), "linear2": ini.linear(d, d)},
+        "proj": ini.linear(cfg.in_dim, d),
+        "conv_pos": {"conv1": ini.conv(cin, d, cfg.conv_kernel),
+                     "conv2": ini.conv(cin, d, cfg.conv_kernel)},
+        "blocks": [block() for _ in range(cfg.depth)],
+        "ada_out": ini.linear(d, 2 * d),
+        "proj_out": ini.linear(d, cfg.out_channels),
+    }
+
+
 def init_tts_tree(cfg: TTSConfig, seed: int = 0):
-    """Random TTS tree: encoder, dp, decoder, spk_embed_affine_layer."""
+    """Random TTS tree: encoder, dp, decoder (the U-Net's or the DiT's, as
+    `cfg.cfm.estimator_kind` says), spk_embed_affine_layer."""
     ini = _Init(seed)
+    dit = cfg.cfm.estimator_kind == "dit"
     return {
         "encoder": _text_encoder(ini, cfg.encoder),
         "dp": _duration(ini, cfg.dp),
-        "decoder": _estimator(ini, cfg.cfm.estimator),
+        "decoder": _dit(ini, cfg.cfm.dit) if dit else _estimator(ini, cfg.cfm.estimator),
         "spk_embed_affine_layer": ini.linear(cfg.spk_embed_dim, cfg.output_size),
     }
 

@@ -45,6 +45,10 @@ op on CUDA against the plain version at the stage's bars. Multi-device:
 a data-parallel step of two Gloo ranks sharing the card against one
 process (losses 1e-3, gradients 2e-2 relative L2) and the sequence-parallel
 solve on a one-rank NCCL mesh against one device (atol 2e-5 / rtol 1e-4).
+The DiT estimator: kernel 1 at its 16 heads against SDPA at the attention
+bar, and one block at the published widths on the DiT cell's shapes
+against `tests/reference_dit.py` (1e-4 of the reference's largest
+magnitude, as `test_torch_port_dit.py`).
 """
 
 import pytest
@@ -1338,3 +1342,64 @@ def test_sp_solve_on_a_one_rank_nccl_mesh_matches_one_device(cuda):
             got = synth.synthesize_long("佢 係 邊 個", mesh=mesh, sp_attention=mode, **kw)
             assert got.mel_frames == want.mel_frames
             np.testing.assert_allclose(got.mel, want.mel, atol=2e-5, rtol=1e-4, err_msg=mode)
+
+
+# the DiT cell's shapes: 16 requests of 600-1200 frames in the 1536 bucket,
+# guidance-doubled to 32 rows
+DIT_LENGTHS = [600 + (600 * i) // 15 for i in range(16)]
+
+
+def test_flash_kernel_at_16_heads_matches_sdpa(cuda):
+    """Kernel 1 at the DiT's 16 heads of 64 (B=32, T=1536) against SDPA with
+    a boolean key mask, valid rows, at the attention bar above."""
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch.nn.flash_attention import flash_attention
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    t, lengths = 1536, DIT_LENGTHS * 2
+    q, k, v = (torch.randn(len(lengths), t, 16, 64, device=cuda, generator=g) for _ in range(3))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    out = flash_attention(q, k, v, lens, scale=0.125)
+    keep = (torch.arange(t, device=cuda)[None] < lens[:, None])[:, None, None, :]
+    want = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                          attn_mask=keep).transpose(1, 2)
+    for i, n in enumerate(lengths):
+        torch.testing.assert_close(out[i, :n], want[i, :n], atol=5e-3, rtol=2e-2)
+
+
+def test_dit_block_at_published_widths_matches_reference(cuda):
+    """One DiT block (dim 1024, 16 heads of 64, ff 2048) on the card at the
+    cell's shapes (32 rows x 1536, lengths 600-1200) against the plain
+    reference (`tests/reference_dit.py`) on each row alone: the largest
+    |diff| over valid frames within 1e-4 of the reference's largest
+    magnitude, the CPU tests' bar (`test_torch_port_dit.py`)."""
+    import dataclasses
+
+    import reference_dit as ref
+
+    from jyutvoice_tpu_torch.config import DiTConfig, EstimatorConfig
+    from jyutvoice_tpu_torch.models.dit import DiTBlock
+    from jyutvoice_tpu_torch.nn.attention import rope_pairs_cos_sin
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    cfg = DiTConfig()
+    tree = random_init._dit(random_init._Init(0), dataclasses.replace(cfg, depth=1))
+    blk = load_jax_params(DiTBlock(cfg), tree["blocks"][0]).to(cuda)
+    p = ref.tensors(tree["blocks"][0], cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    t, lengths = 1536, DIT_LENGTHS * 2
+    h = torch.randn(len(lengths), t, cfg.dim, device=cuda, generator=g)
+    st = torch.nn.functional.silu(torch.randn(len(lengths), 1, cfg.dim, device=cuda, generator=g))
+    cos, sin = rope_pairs_cos_sin(t, cfg.dim_head, device=cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        got = blk(h, blk.ada(st), (cos[:, None], sin[:, None]),
+                  {"lengths": lens, "backend": "flash"})
+        worst = 0.0
+        for i, n in enumerate(lengths):
+            want = ref.block(p, dataclasses.asdict(cfg), h[i:i + 1, :n], st[i:i + 1])
+            worst = max(worst, float((got[i, :n] - want[0]).abs().max() / want.abs().max()))
+    assert EstimatorConfig().attention_backend == "xla"  # the cell routes T=1536 to kernel 1
+    assert worst <= 1e-4, worst
