@@ -25,10 +25,22 @@ and band settings), so both estimators take kernel 1 and the same routes at
 every length. All 22 blocks' modulations depend on temb alone and are made
 before the first block.
 
+The conv position embedding is the only operation outside attention that
+mixes frames; it runs on the padded (B, T) frames. Where the mask holds
+padding, the blocks then run on the valid frame rows alone, packed end to
+end (`PackedRows`: one device-to-host read a call, the row index from the
+mask): every block's norms, modulations, GEMMs, GELU and gated residuals
+see N rows, not B T. Attention scatters the packed q/k/v rows into a
+padded buffer zeroed once a call (padded rows stay 0), runs RoPE and
+`attention_core` on it as the unpacked path does, and gathers the valid
+rows of its output back; the velocity's padded frames are 0. Where the
+mask holds no padding the blocks run on (B, T, D) as they are.
+
 Spans (`utils/observability.py`): `dit.embed` (time embedding, the
-modulations, the input projection and the conv position embedding),
-`dit.attn` and `dit.ff` (each block's two halves, norm to gated
-residual). `ESTIMATOR_ROWS` counts each call's frame rows and valid rows.
+modulations, the input projection, the conv position embedding and the
+packing), `dit.attn` and `dit.ff` (each block's two halves, norm to gated
+residual). `ESTIMATOR_ROWS` counts the rows each call's blocks computed (N
+when packed, B T otherwise) and its valid frame rows.
 
 Inference only, on one device and without chunk masks: the streaming
 chunk masks, training, the int8 path, the serving export and `dist/` run
@@ -59,9 +71,51 @@ LN_EPS = 1e-6
 
 
 def modulate(x: Tensor, scale: Tensor, shift: Tensor) -> Tensor:
-    """LN(x) (1 + scale) + shift; scale and shift (B, 1, D)."""
+    """LN(x) (1 + scale) + shift; scale and shift broadcast against x's
+    rows: (B, 1, D) against (B, T, D), (1, D) or (N, D) against packed
+    (N, D)."""
     y = F.layer_norm(x, (x.shape[-1],), eps=LN_EPS)
     return torch.addcmul(shift, y, 1.0 + scale)
+
+
+class PackedRows:
+    """The valid frame rows of one call, packed end to end: packed row i is
+    frame `idx[i]` of the call's flattened (B T) frames, each request's
+    frames contiguous and in order. `shared`: every row has the same t, so
+    every request's modulation is row 0's and the rows take it by
+    broadcast; else each row gathers its request's."""
+
+    def __init__(self, valid: Tensor, n: int, b: int, t: int, shared: bool):
+        """valid: the (B T,) validity of the frames, n how many are valid,
+        known on the host: the index is built on the device."""
+        slot = torch.where(valid, valid.cumsum(0) - 1, n)  # n: a padded frame's dump slot
+        frames = torch.arange(valid.numel(), device=valid.device)
+        self.idx = frames.new_zeros(n + 1).scatter_(0, slot, frames)[:n]
+        self.b, self.t = b, t
+        self.req = None if shared else self.idx // t
+        self.qkv_buf = None
+
+    def pack(self, y: Tensor) -> Tensor:
+        """(B, T, C) -> the valid rows (N, C)."""
+        return y.reshape(self.b * self.t, -1).index_select(0, self.idx)
+
+    def unpack(self, y: Tensor, out: Tensor) -> Tensor:
+        """(N, C) rows written into their frames of out (B T, C), the rest
+        of out left as it is; viewed as (B, T, C)."""
+        return out.index_copy_(0, self.idx, y).view(self.b, self.t, -1)
+
+    def qkv(self, y: Tensor) -> Tensor:
+        """The q/k/v GEMM's (N, 3 inner) rows as padded (B, T, 3 inner)
+        frames, in one buffer zeroed once a call and reused by every block:
+        no block writes a padded row, so they stay 0 (and finite)."""
+        if self.qkv_buf is None:
+            self.qkv_buf = y.new_zeros(self.b * self.t, y.shape[-1])
+        return self.unpack(y, self.qkv_buf)
+
+    def modulation(self, m: Tensor) -> Tensor:
+        """A (B, C) per-request modulation for the packed rows: (1, C) or
+        (N, C)."""
+        return m[:1] if self.req is None else m.index_select(0, self.req)
 
 
 class ConvPositionEmbedding(nn.Module):
@@ -106,16 +160,23 @@ class DiTAttention(nn.Module):
         x[:, :, :n] = apply_rope_pairs(x[:, :, :n], cos, sin)
         return x
 
-    def forward(self, x: Tensor, rope, ctx: dict) -> Tensor:
-        """q, k and v come from one GEMM over the three weights side by side
-        (3.5 % faster than three at the DiT cell's shapes on the H100), as
-        (B, T, H, D) views that kernel 1 takes as they are."""
-        b, t, _ = x.shape
+    def forward(self, x: Tensor, rope, ctx: dict, rows: PackedRows | None = None) -> Tensor:
+        """x (B, T, D), or packed (N, D) rows of `rows`. q, k and v come
+        from one GEMM over the three weights side by side (3.5 % faster than
+        three at the DiT cell's shapes on the H100), as (B, T, H, D) views
+        that kernel 1 takes as they are; packed rows reach them through the
+        padded buffer of `PackedRows.qkv`, and only the valid rows of the
+        attention reach the out GEMM."""
         w = torch.cat([self.q.weight, self.k.weight, self.v.weight])
         bias = torch.cat([self.q.bias, self.k.bias, self.v.bias])
-        q, k, v = F.linear(x, w, bias).view(b, t, 3, self.heads, -1).unbind(2)
+        qkv = F.linear(x, w, bias)
+        if rows is not None:
+            qkv = rows.qkv(qkv)
+        b, t, _ = qkv.shape
+        q, k, v = qkv.view(b, t, 3, self.heads, -1).unbind(2)
         q, k = self.rotate(q, *rope), self.rotate(k, *rope)
-        return self.o(attention_core(q, k, v, **ctx))
+        o = attention_core(q, k, v, **ctx)
+        return self.o(o if rows is None else rows.pack(o))
 
 
 class DiTBlock(nn.Module):
@@ -126,11 +187,13 @@ class DiTBlock(nn.Module):
         self.ff_in = core.Linear(cfg.dim, cfg.ff_mult * cfg.dim)
         self.ff_out = core.Linear(cfg.ff_mult * cfg.dim, cfg.dim)
 
-    def forward(self, h: Tensor, mod: Tensor, rope, ctx: dict) -> Tensor:
-        """mod: this block's (B, 1, 6 D) modulation."""
+    def forward(self, h: Tensor, mod: Tensor, rope, ctx: dict,
+                rows: PackedRows | None = None) -> Tensor:
+        """h (B, T, D) with this block's (B, 1, 6 D) modulation, or the
+        packed (N, D) rows of `rows` with a (1, 6 D) or (N, 6 D) one."""
         s1, c1, g1, s2, c2, g2 = mod.chunk(6, dim=-1)
         with span("dit.attn"):
-            h = torch.addcmul(h, g1, self.attn(modulate(h, c1, s1), rope, ctx))
+            h = torch.addcmul(h, g1, self.attn(modulate(h, c1, s1), rope, ctx, rows))
         with span("dit.ff"):
             y = F.gelu(self.ff_in(modulate(h, c2, s2)), approximate="tanh")
             return torch.addcmul(h, g2, self.ff_out(y))
@@ -165,20 +228,33 @@ class DiT(nn.Module):
         training: bool = False,
     ) -> Tensor:
         """`Estimator.forward`'s call: x, mu, cond (B, T, 80); mask (B, T, 1)
-        prefix mask; t (B,); spks (B, 80); attention the long-form mode of
-        `attention_route`. Returns the velocity (B, T, 80)."""
+        prefix mask of 0 and 1; t (B,); spks (B, 80); attention the
+        long-form mode of `attention_route`. Returns the velocity (B, T,
+        80), 0 on padded frames.
+
+        The count of the mask's valid frames is the call's one read back
+        to the host: copied out before the embedding is queued and waited
+        for after, so the device runs the embedding while the host waits
+        and never drains (a `nonzero` there, which drains the queue, left
+        the H100 0.3-0.5 points more idle on the DiT cell). A mask with
+        padding packs the blocks' rows (`PackedRows`); a t expanded from one
+        value (`solve_euler_cfg`'s) shares one modulation among them."""
         if streaming or training:
             what = "training" if training else "streaming chunk masks"
             raise NotImplementedError(f"{what}: the U-Net estimator only; the DiT runs "
                                       "inference with full attention")
         cfg = self.cfg
         b, seq, _ = x.shape
-        ESTIMATOR_ROWS.add(b * seq, mask)
+        valid = mask.reshape(-1) != 0
+        n_valid = valid.sum().to("cpu", non_blocking=True)
+        counted = torch.cuda.Event() if valid.is_cuda else None
+        if counted is not None:
+            counted.record()
         with span("dit.embed"):
             temb = self.time_mlp(sinusoidal_pos_emb(t, cfg.freq_embed_dim).to(x.dtype))
             st = F.silu(temb)
-            mods = [blk.ada(st)[:, None, :] for blk in self.blocks]
-            c, s = self.ada_out(st)[:, None, :].chunk(2, dim=-1)
+            mods = [blk.ada(st) for blk in self.blocks]
+            out_mod = self.ada_out(st)
             backend = attention_route(self.route, seq, 0, attention, x.is_cuda)
             ctx = attention_ctx(self.route, backend, mask, 0)
             del ctx["n_heads"]
@@ -186,6 +262,19 @@ class DiT(nn.Module):
             rope = (cos[:, None], sin[:, None])  # against (B, T, H, D)
             h = self.proj(self.inputs(x, mu, spks, cond))
             h = h + self.conv_pos(h, mask)
+            if counted is not None:
+                counted.synchronize()
+            n = int(n_valid)
+            rows = None
+            if n < b * seq:
+                rows = PackedRows(valid, n, b, seq, shared=t.numel() == 1 or t.stride(0) == 0)
+                h = rows.pack(h)
+        ESTIMATOR_ROWS.add(n, mask)
+        per_row = (lambda m: m[:, None, :]) if rows is None else rows.modulation
         for blk, mod in zip(self.blocks, mods):
-            h = blk(h, mod, rope, ctx)
-        return self.proj_out(modulate(h, c, s)) * mask
+            h = blk(h, per_row(mod), rope, ctx, rows)
+        c, s = per_row(out_mod).chunk(2, dim=-1)
+        v = self.proj_out(modulate(h, c, s))
+        if rows is None:  # every frame valid
+            return v
+        return rows.unpack(v, v.new_zeros(b * seq, v.shape[-1]))

@@ -14,8 +14,8 @@ kept by the recorder itself, and not as `record_function` ranges, because
 those exist only while a profiler runs and the engine's host time is read
 without one. Nothing is recorded while torch.export or dynamo traces
 (`kernels.tracing()`). Names starting with `wait.` mark the host blocked on
-the device. `ESTIMATOR_ROWS` counts the DiT estimator's frame rows, valid
-and padded, while the recorder is on.
+the device. `ESTIMATOR_ROWS` counts the frame rows the DiT estimator's blocks
+computed and the valid frame rows, while the recorder is on.
 
 `trace` records a `torch.profiler` trace (host and, on the GPU, device
 activity) as a Chrome-trace JSON that Perfetto and TensorBoard's profiler
@@ -141,9 +141,11 @@ def drain() -> List[Span]:
 
 
 class RowCounter:
-    """The frame rows an estimator computed and how many of them were
-    valid, counted while the recorder is on: rows from shapes on the host,
-    valid rows summed into a device tensor (one per device) that only
+    """The frame rows an estimator's blocks computed and the valid frame
+    rows of its calls, counted while the recorder is on: computed rows as
+    the caller gives them on the host (the DiT's: the N valid rows it
+    packs where a call's mask holds padding, B T otherwise), valid rows
+    summed from the mask into a device tensor (one per device) that only
     `read` brings back, so counting waits for nothing."""
 
     def __init__(self) -> None:
@@ -151,7 +153,8 @@ class RowCounter:
         self.reset()
 
     def add(self, rows: int, mask: torch.Tensor) -> None:
-        """One call over `rows` frame rows whose validity is `mask`."""
+        """One call whose blocks computed `rows` frame rows, over frames
+        whose validity is `mask`."""
         if not RECORDER.on or kernels.tracing():
             return
         valid = mask.sum(dtype=torch.float64)

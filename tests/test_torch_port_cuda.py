@@ -46,9 +46,11 @@ a data-parallel step of two Gloo ranks sharing the card against one
 process (losses 1e-3, gradients 2e-2 relative L2) and the sequence-parallel
 solve on a one-rank NCCL mesh against one device (atol 2e-5 / rtol 1e-4).
 The DiT estimator: kernel 1 at its 16 heads against SDPA at the attention
-bar, and one block at the published widths on the DiT cell's shapes
-against `tests/reference_dit.py` (1e-4 of the reference's largest
-magnitude, as `test_torch_port_dit.py`).
+bar, one block at the published widths on the DiT cell's shapes, and the
+whole DiT at the published widths and depth 2 on a guidance-doubled batch
+at those shapes, its blocks on the packed valid rows, against
+`tests/reference_dit.py` (1e-4 of the reference's largest magnitude, as
+`test_torch_port_dit.py`).
 """
 
 import pytest
@@ -1402,4 +1404,54 @@ def test_dit_block_at_published_widths_matches_reference(cuda):
             want = ref.block(p, dataclasses.asdict(cfg), h[i:i + 1, :n], st[i:i + 1])
             worst = max(worst, float((got[i, :n] - want[0]).abs().max() / want.abs().max()))
     assert EstimatorConfig().attention_backend == "xla"  # the cell routes T=1536 to kernel 1
+    assert worst <= 1e-4, worst
+
+
+def test_dit_at_published_widths_runs_its_blocks_on_the_valid_rows(cuda):
+    """The whole DiT at the published widths and depth 2, on a guidance-
+    doubled batch at the cell's shapes (2 x 16 rows x 1536, lengths
+    600-1200, one t expanded over the rows as the solve passes it), against
+    the plain reference on each row alone at the bar above; padded frames
+    exactly 0, and the blocks' GEMMs ran on the N valid rows alone (the M of
+    the first block's out projection and feed-forward inputs)."""
+    import dataclasses
+
+    import reference_dit as ref
+
+    from jyutvoice_tpu_torch.config import DiTConfig, EstimatorConfig
+    from jyutvoice_tpu_torch.models.dit import DiT
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    cfg = dataclasses.replace(DiTConfig(), depth=2)
+    tree = random_init._dit(random_init._Init(0), cfg)
+    dit = load_jax_params(DiT(cfg, EstimatorConfig()), tree).to(cuda).eval()
+    p = ref.tensors(tree, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    t, lengths = 1536, DIT_LENGTHS
+    b = len(lengths)
+    x, mu, cond = (torch.randn(b, t, 80, device=cuda, generator=g) for _ in range(3))
+    spks = torch.randn(b, 80, device=cuda, generator=g)
+    mask = (torch.arange(t, device=cuda)[None]
+            < torch.tensor(lengths, device=cuda)[:, None]).float()[..., None]
+    zero = torch.zeros_like(mu)
+    x2, mask2 = torch.cat([x, x]), torch.cat([mask, mask])
+    mu2, cond2 = torch.cat([mu * mask, zero]), torch.cat([cond * mask, zero])
+    spks2 = torch.cat([spks, torch.zeros_like(spks)])
+    t2 = torch.rand(1, device=cuda, generator=g)[0].expand(2 * b)
+    rows = []
+    blk = dit.blocks[0]
+    hooks = [m.register_forward_pre_hook(lambda _, a: rows.append(a[0].shape[0]))
+             for m in (blk.attn.o, blk.ff_in)]
+    with torch.inference_mode():
+        got = dit(x2, mask2, mu2, t2, spks2, cond2)
+        worst = 0.0
+        for i, n in enumerate(lengths * 2):
+            assert not got[i, n:].any(), i
+            want = ref.estimator(p, dataclasses.asdict(cfg), x2[i:i + 1, :n], mu2[i:i + 1, :n],
+                                 t2[i:i + 1], spks2[i:i + 1], cond2[i:i + 1, :n])
+            worst = max(worst, float((got[i, :n] - want[0]).abs().max() / want.abs().max()))
+    for h in hooks:
+        h.remove()
+    assert rows == [2 * sum(lengths)] * 2
     assert worst <= 1e-4, worst

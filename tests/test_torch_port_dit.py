@@ -7,10 +7,16 @@ Tolerance: the largest |port - reference| over valid frames, as a share
 of the reference's largest magnitude, at most 1e-4. Both compute in f32
 and round the attention at kernel 1's points, so they differ by the order
 of f32 sums and, through a last-bit difference, a bf16 rounding of q, k, v
-or P flipping here and there: 3e-7 to 9e-6 in these tests. The same
+or P flipping here and there: 3e-7 to 1.6e-5 in these tests (the
+ragged batch's 1.6e-5 reads the same on the unpacked rows). The same
 estimator with bf16 products reads 4.6e-3
 (`test_bf16_estimator_fails_the_tolerance`). The two references differ by
 the layer norm's own sums and such flips: 5e-6, held to 2e-5.
+
+The blocks run on the packed valid rows wherever a call's mask holds
+padding: ragged guidance-doubled batches (a one-frame row, a full row,
+one t for every row or one a row) match the reference row by row, with
+padded frames exactly 0, and a batch without padding runs unpacked.
 
 Also: the interleaved-pair RoPE by hand, the benchmark's copy of the
 reference (`portbench/reference/dit.py`) against this one, the published
@@ -123,6 +129,51 @@ def test_estimator_on_a_padded_batch_matches_reference(dit, p):
             assert gap(got[i:i + 1, :n], want) <= TOL, i
 
 
+def _cfg_batch(t, lengths, per_row_t, seed):
+    """A guidance-doubled batch of requests of `lengths` as `solve_euler_cfg`
+    builds it (the unconditioned half with mu, speaker and condition at
+    zero): t one value expanded over the rows, or one value per row."""
+    b = len(lengths)
+    x, mu, tt, spks, cond = inputs(b, t, seed=seed)
+    mask = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).float()[..., None]
+    t2 = torch.rand(2 * b, generator=torch.Generator().manual_seed(seed)) if per_row_t \
+        else tt[0].expand(2 * b)
+    zero = torch.zeros_like(mu)
+    return (torch.cat([x, x]), torch.cat([mask, mask]), torch.cat([mu * mask, zero]), t2,
+            torch.cat([spks, torch.zeros_like(spks)]), torch.cat([cond * mask, zero]))
+
+
+@pytest.mark.parametrize("lengths,per_row_t,packed", [
+    ((96, 1, 37, 70), False, True),    # ragged, a full row and a one-frame row
+    ((1,), False, True),               # a lone one-frame request
+    ((96, 96), False, False),          # no padding: the blocks run on (B, T, D)
+    ((96, 1, 37, 70), True, True),     # one t a row: each row gathers its modulation
+    ((96, 96), True, False),
+], ids=["ragged", "one_frame", "full", "ragged_per_row_t", "full_per_row_t"])
+def test_packed_rows_of_a_cfg_batch_match_reference(dit, p, monkeypatch, lengths, per_row_t,
+                                                    packed):
+    from jyutvoice_tpu_torch.models import dit as dit_module
+
+    made = []
+
+    class Spy(dit_module.PackedRows):
+        def __init__(self, valid, n, b, t, shared):
+            super().__init__(valid, n, b, t, shared)
+            made.append((n, shared))
+
+    monkeypatch.setattr(dit_module, "PackedRows", Spy)
+    t = 96
+    x, mask, mu, tt, spks, cond = _cfg_batch(t, lengths, per_row_t, seed=7)
+    with torch.no_grad():
+        got = dit(x, mask, mu, tt, spks, cond)
+        for i, n in enumerate(lengths * 2):
+            assert not got[i, n:].any()  # padded frames exactly 0
+            want = ref.estimator(p, S, x[i:i + 1, :n], mu[i:i + 1, :n], tt[i:i + 1],
+                                 spks[i:i + 1], cond[i:i + 1, :n])
+            assert gap(got[i:i + 1, :n], want) <= TOL, i
+    assert made == ([(2 * sum(lengths), not per_row_t)] if packed else [])
+
+
 def test_cfg_solve_through_cfm_forward_matches_reference(dit, p):
     t, lengths, steps = 80, (80, 53), 3
     _, mu, _, spks, cond = inputs(2, t, seed=1)
@@ -207,8 +258,20 @@ def test_spans_and_row_counter_of_a_call(dit):
     assert names.count("dit.attn") == names.count("dit.ff") == 2 * DIT.depth
     solve = next(s for s in spans if s.name == "mel.solve")
     assert all(s.parent == solve.id for s in spans if s.name.startswith("dit."))
-    # two steps of 2 x 2 rows (guidance) of 32 frames, 52 of them valid
-    assert obs.ESTIMATOR_ROWS.read() == (2 * 4 * t, 2 * 2 * sum(lengths))
+    # two steps of 2 x 2 rows (guidance) of 32 frames, 52 of them valid: the
+    # blocks computed the valid rows alone
+    assert obs.ESTIMATOR_ROWS.read() == (2 * 2 * sum(lengths), 2 * 2 * sum(lengths))
+    obs.ESTIMATOR_ROWS.reset()
+    full = torch.ones_like(mask)  # no padding: the blocks computed every row
+    obs.enable()
+    try:
+        with torch.no_grad():
+            cfm_forward(dit, CFG.tts.cfm, mu, full, spks, cond, n_timesteps=2,
+                        rand_noise=rand_noise())
+    finally:
+        obs.disable()
+    obs.drain()
+    assert obs.ESTIMATOR_ROWS.read() == (2 * 4 * t, 2 * 4 * t)
     obs.ESTIMATOR_ROWS.reset()
 
 
