@@ -47,9 +47,9 @@ import torch
 from jyutvoice_tpu_torch.pipeline import buckets as bkt
 from jyutvoice_tpu_torch.pipeline.streaming import MultiStreamSynthesizer
 from jyutvoice_tpu_torch.pipeline.synthesize import (
-    PROMPT_PAIR_ERROR,
     NoiseBufferExceeded,
     OverLongBatchItems,
+    check_request,
 )
 from jyutvoice_tpu_torch.utils.observability import span
 
@@ -254,32 +254,11 @@ class ServingEngine:
         malformed request would fail every request batched with it. The
         front end's output is kept on the item ("_prepped")."""
         ok = []
-        spk_dim = self.synth.cfg.tts.spk_embed_dim
-        n_feats = self.synth.cfg.audio.n_mels
         for req in group:
             try:
                 it = req.item
-                pf, ph = it.get("prompt_feat"), it.get("prompt_h")
-                if (pf is None) != (ph is None):
-                    raise ValueError(PROMPT_PAIR_ERROR)
-                if pf is not None:
-                    pfa, pha = np.asarray(pf), np.asarray(ph)
-                    if (pfa.ndim != 2 or pfa.shape[1] != n_feats
-                            or pha.ndim != 2 or pha.shape[1] != n_feats):
-                        raise ValueError(f"prompt_feat/prompt_h must be (T, {n_feats}); "
-                                         f"got {pfa.shape} / {pha.shape}")
-                    if len(pfa) != len(pha):
-                        raise ValueError(f"prompt_feat ({len(pfa)} frames) and prompt_h "
-                                         f"({len(pha)} frames) must be aligned")
-                    if len(pfa) > bkt.PROMPT_BUCKETS[-1]:
-                        raise ValueError(
-                            f"cloning prompt is {len(pfa)} mel frames; the largest prompt "
-                            f"bucket is {bkt.PROMPT_BUCKETS[-1]} "
-                            f"(~{bkt.PROMPT_BUCKETS[-1] // 50} s): trim the reference audio")
-                spk = it.get("spk_embed")
-                if spk is not None and np.asarray(spk).shape != (spk_dim,):
-                    raise ValueError(f"spk_embed must have shape ({spk_dim},); got "
-                                     f"{np.asarray(spk).shape}")
+                check_request(self.synth.cfg, it.get("spk_embed"), it.get("prompt_feat"),
+                              it.get("prompt_h"))
                 it["_prepped"] = self.synth.prepare_text(it["text"], it.get("lang", "yue"),
                                                          it.get("phone"))
                 ok.append(req)
@@ -532,19 +511,18 @@ class StreamingLane:
         prompt_feat: Optional[np.ndarray] = None,
         prompt_h: Optional[np.ndarray] = None,
     ) -> _StreamHandle:
-        """Queue one stream. A prompt is checked here, in the caller's
+        """Queue one stream. The request is checked here, in the caller's
         thread, so its error comes at submit time, not inside a tick."""
+        check_request(self.synth.cfg, spk_embed, prompt_feat, prompt_h)
         if prompt_feat is not None:
             if self.prompt_frames == 0:
                 raise ValueError(
                     "this streaming lane was built without prompt capacity (prompt_frames=0);"
                     " rebuild it with prompt_frames set to a PROMPT_BUCKETS value to stream"
                     " cloning requests")
-            if prompt_h is None:
-                raise ValueError("prompt_feat requires prompt_h")
-            if prompt_feat.shape[0] > self.prompt_frames:
+            if len(prompt_feat) > self.prompt_frames:
                 raise ValueError(
-                    f"cloning prompt is {prompt_feat.shape[0]} frames, past this lane's "
+                    f"cloning prompt is {len(prompt_feat)} frames, past this lane's "
                     f"{self.prompt_frames}-frame capacity: trim the reference audio or "
                     "raise prompt_frames")
         handle = _StreamHandle()

@@ -8,18 +8,20 @@ The counterpart of the JAX package's `pipeline/synthesize.py::Synthesizer`
     the 10-step Euler CFM whose attention is kernel 1 on CUDA;
   * phase 3, vocoder: HiFT at the mel bucket, kernel 2 for the C <= 128
     ResBlock stages on CUDA.
-Past the largest mel bucket, `synthesize` hands the request to
-`synthesize_long`: the text half once (`prepare_stream`), then one CFM solve
-over the whole utterance at a 512-aligned length, where the estimator takes
-the long-form attention gates (banded, or kernel 3 for exact attention),
-then the windowed vocoder. `synthesize_streaming` runs the same text half,
-then yields the waveform chunk by chunk (`pipeline/streaming.py`).
-`synthesize_batch_dispatch` runs the short path for several requests at
-once (the serving engine's path, `pipeline/server.py`): one duration pass,
-then the mel phase and the vocoder at a power-of-two batch, with the
-read-back left to the `finalize` it returns. `synthesize_long(mesh=...)`
-and `warmup_long(mesh=...)` shard the long-form solve over a
-sequence-parallel mesh of ranks (`dist/sp.py`).
+The short path is `synthesize_batch_dispatch` (the serving engine's path,
+`pipeline/server.py`): staging, one duration pass, then the mel phase and
+the vocoder at a power-of-two batch, with the read-back left to the
+`finalize` it returns. `synthesize` runs its steps at a batch of one and
+`warmup` its mel phase and vocoder on zero inputs. Past the largest mel
+bucket, `synthesize` hands the request to `synthesize_long`: the text half
+once (`prepare_stream`), then one CFM solve over the whole utterance at a
+512-aligned length, where the estimator takes the long-form attention gates
+(banded, or kernel 3 for exact attention), then the windowed vocoder.
+`synthesize_streaming` runs the same text half, then yields the waveform
+chunk by chunk (`pipeline/streaming.py`). `synthesize_long(mesh=...)` and
+`warmup_long(mesh=...)` shard the long-form solve over a sequence-parallel
+mesh of ranks (`dist/sp.py`). Every request entry, here and in
+`pipeline/server.py`, first calls `check_request`.
 """
 
 from __future__ import annotations
@@ -43,10 +45,43 @@ from jyutvoice_tpu_torch.utils.observability import span
 from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
 from jyutvoice_tpu_torch.weights.noise import rand_noise, rand_noise_extended
 
-PROMPT_PAIR_ERROR = (
-    "voice cloning needs BOTH prompt_feat and prompt_h "
-    "(PromptExtractor returns the pair); got only one"
-)
+
+def check_request(cfg: JyutVoiceConfig, spk_embed=None, prompt_feat=None, prompt_h=None):
+    """The checks every request entry makes before any work: a speaker
+    embedding of shape (spk_embed_dim,), and a cloning prompt given as a
+    whole pair of equal-length (T, n_mels) arrays no longer than the largest
+    prompt bucket. Returns the pair as float32 arrays, or None without a
+    prompt; raises ValueError."""
+    dim = cfg.tts.spk_embed_dim
+    if spk_embed is not None and np.shape(spk_embed) != (dim,):
+        raise ValueError(f"spk_embed must have shape ({dim},); got {np.shape(spk_embed)}")
+    if (prompt_feat is None) != (prompt_h is None):
+        raise ValueError(
+            "mismatched cloning prompt: voice cloning needs BOTH prompt_feat and prompt_h "
+            "(PromptExtractor returns the pair); got only one"
+        )
+    if prompt_feat is None:
+        return None
+    n_mels = cfg.audio.n_mels
+    pf, ph = np.asarray(prompt_feat, np.float32), np.asarray(prompt_h, np.float32)
+    if any(a.ndim != 2 or a.shape[1] != n_mels for a in (pf, ph)):
+        raise ValueError(
+            f"prompt_feat/prompt_h must be (T_p, {n_mels}), the (T, {n_mels}) pair "
+            f"PromptExtractor returns; got {pf.shape} / {ph.shape}"
+        )
+    if len(pf) != len(ph):
+        raise ValueError(
+            f"mismatched cloning prompt: prompt_feat/prompt_h lengths differ: {len(pf)} vs "
+            f"{len(ph)} frames (PromptExtractor returns the aligned pair)"
+        )
+    cap = bkt.PROMPT_BUCKETS[-1]
+    if len(pf) > cap:
+        raise ValueError(
+            f"cloning prompt is {len(pf)} mel frames, past the largest prompt bucket {cap} "
+            f"(~{cap * cfg.audio.hop_length / cfg.audio.sample_rate:.0f} s): trim the "
+            "reference audio"
+        )
+    return pf, ph
 
 
 class OverLongBatchItems(ValueError):
@@ -291,17 +326,15 @@ class Synthesizer:
         length_scale: float = 1.0,
         pcm16: bool = False,
     ) -> SynthesisResult:
-        """pcm16=True rounds the waveform to 16 bits on the device (read back
-        as int16, returned dequantized)."""
+        """One request through the steps of `synthesize_batch_dispatch` at a
+        batch of one, extending the noise past its buffer, then waited for
+        and read back. pcm16=True rounds the waveform to 16 bits on the
+        device (read back as int16, returned dequantized)."""
         t0 = time.perf_counter()
-        arrs, n, t_text = self.prepare_text(text, lang, phone)
-        spk = self._spk(spk_embed)
-
-        # phase 1: required mel frames
-        y_len = int(np.ceil(self.duration_frames(arrs, n, spk) * length_scale))
-        # the prompt pair is checked before the long-form hand-over
-        if (prompt_feat is None) != (prompt_h is None):
-            raise ValueError(PROMPT_PAIR_ERROR)
+        pair = check_request(self.cfg, spk_embed, prompt_feat, prompt_h)
+        prepped, texts = self._stage_texts([dict(text=text, lang=lang, phone=phone,
+                                                 spk_embed=spk_embed)])
+        y_len = int(np.ceil(self.duration_frames_batch(*texts)[0] * length_scale))
         if y_len > bkt.MEL_BUCKETS[-1]:
             # past the bucket table: one pass of the long-form path, reusing
             # this call's g2p
@@ -309,65 +342,37 @@ class Synthesizer:
                 text, lang=lang, phone=phone, spk_embed=spk_embed,
                 prompt_feat=prompt_feat, prompt_h=prompt_h,
                 n_timesteps=n_timesteps, length_scale=length_scale, pcm16=pcm16,
-                prepped=(arrs, n, t_text),
+                prepped=prepped[0],
             )
         t_mel = bkt.pick_bucket(max(y_len, 1), bkt.MEL_BUCKETS)
-
-        if prompt_feat is not None:
-            p_len = prompt_feat.shape[0]
-            t_prompt = bkt.pick_prompt_bucket(p_len, t_mel)
-            pf = np.zeros((1, t_prompt, 80), np.float32)
-            ph = np.zeros((1, t_prompt, 80), np.float32)
-            pf[0, :p_len] = prompt_feat
-            ph[0, :p_len] = prompt_h
-        else:
-            p_len, t_prompt = 0, 0
-            pf = ph = np.zeros((1, 0, 80), np.float32)
-
-        noise = self.noise
-        if t_prompt + t_mel > noise.shape[1]:
-            # past the 15000-frame buffer: extend deterministically
-            noise = rand_noise_extended(t_prompt + t_mel, device=self.device)
-        x, tone, word_pos, syllable_pos, lang_ids = (
-            torch.from_numpy(a).to(self.device) for a in arrs
-        )
+        t_prompt = bkt.pick_prompt_bucket(0 if pair is None else len(pair[0]), t_mel)
+        prompts = self._stage_prompts([pair], t_prompt)
         t1 = time.perf_counter()
-
-        out = tts_mod.synthesize_mel(
-            self.tts, x, torch.from_numpy(n).to(self.device), lang_ids, tone,
-            word_pos, syllable_pos, spk,
-            torch.from_numpy(pf).to(self.device), torch.from_numpy(ph).to(self.device),
-            torch.tensor([p_len], dtype=torch.int32),
-            t_mel_max=t_mel, n_timesteps=n_timesteps, rand_noise=noise,
-            length_scale=length_scale,
-        )
-        mel_frames = int(out.mel_lengths[0])
-        self._sync()
-        t2 = time.perf_counter()
-
-        wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
-        if pcm16:
-            wav = to_pcm16(wav)
+        clock = []
+        out, wav = self._enqueue(texts, prompts, t_mel, n_timesteps, length_scale, pcm16,
+                                 self._noise(t_prompt + t_mel), clock)
         self._sync()
         t3 = time.perf_counter()
+        (res,) = self._read_back(out, wav, 1, return_mel=True)()
+        wav_np = res.wav.astype(np.float32) / 32767.0 if pcm16 else res.wav
+        return self._timed_result(wav_np, res.mel, res.mel_frames, (t0, t1, clock[0], t3))
 
-        num_samples = mel_frames * self.cfg.audio.hop_length
-        wav_np = wav[0, :num_samples].cpu().numpy()
-        if pcm16:
-            wav_np = wav_np.astype(np.float32) / 32767.0
-        mel_np = out.mel[0, :mel_frames].float().cpu().numpy()
-        elapsed = t3 - t0
-        audio_seconds = num_samples / self.cfg.audio.sample_rate
+    def _timed_result(self, wav, mel, mel_frames: int, clock) -> SynthesisResult:
+        """The result of `synthesize` / `synthesize_long`, with its rtf and
+        timings from the clock readings at its start, after its text half,
+        after its mel phase and after its vocoder."""
+        t0, t1, t2, t3 = clock
+        audio_seconds = mel_frames * self.cfg.audio.hop_length / self.cfg.audio.sample_rate
         return SynthesisResult(
-            wav=wav_np,
-            mel=mel_np,
+            wav=wav,
+            mel=mel,
             mel_frames=mel_frames,
-            rtf=elapsed / max(audio_seconds, 1e-9),
+            rtf=(t3 - t0) / max(audio_seconds, 1e-9),
             timings={
                 "frontend_and_duration": t1 - t0,
                 "mel": t2 - t1,
                 "vocoder": t3 - t2,
-                "total": elapsed,
+                "total": t3 - t0,
                 "audio_seconds": audio_seconds,
             },
         )
@@ -394,12 +399,12 @@ class Synthesizer:
         per (chunk, bucket, steps, masks) serves every prompt length."""
         from jyutvoice_tpu_torch.pipeline.streaming import StreamingSynthesizer
 
-        if (prompt_feat is None) != (prompt_h is None):
-            raise ValueError(PROMPT_PAIR_ERROR)
+        pair = check_request(self.cfg, spk_embed, prompt_feat, prompt_h)
         mu_y, c, y_len = self.prepare_stream(
             text, lang=lang, phone=phone, spk_embed=spk_embed, length_scale=length_scale,
         )
-        p_len = 0 if prompt_feat is None else prompt_feat.shape[0]
+        prompt_feat, prompt_h = pair or (None, None)
+        p_len = 0 if prompt_feat is None else len(prompt_feat)
         p_cap = bkt.pick_bucket(p_len, bkt.PROMPT_BUCKETS[1:]) if p_len else 0
         key = (chunk_frames, p_cap, n_timesteps, estimator_chunk_masks)
         if key not in self._streams:
@@ -472,36 +477,15 @@ class Synthesizer:
                 "control; sharded decodes pick sp_attention instead"
             )
         n_seq = 1 if mesh is None else _seq_size(mesh)
-        if (prompt_feat is None) != (prompt_h is None):
-            raise ValueError(PROMPT_PAIR_ERROR)
-        p_len = 0
-        if prompt_feat is not None:
-            prompt_feat = np.asarray(prompt_feat, np.float32)
-            prompt_h = np.asarray(prompt_h, np.float32)
-            for name, arr in (("prompt_feat", prompt_feat), ("prompt_h", prompt_h)):
-                if arr.ndim != 2 or arr.shape[1] != 80:
-                    raise ValueError(f"{name} must be (T_p, 80), got {arr.shape}")
-            p_len = int(prompt_feat.shape[0])
-            if prompt_h.shape[0] != p_len:
-                raise ValueError(
-                    f"prompt_feat/prompt_h lengths differ: {p_len} vs "
-                    f"{prompt_h.shape[0]}"
-                )
-            if p_len > bkt.PROMPT_BUCKETS[-1]:
-                audio = self.cfg.audio
-                raise ValueError(
-                    f"cloning prompt is {p_len} mel frames — past the largest "
-                    f"prompt bucket {bkt.PROMPT_BUCKETS[-1]} (~"
-                    f"{bkt.PROMPT_BUCKETS[-1] * audio.hop_length / audio.sample_rate:.0f} s); "
-                    "trim the reference audio"
-                )
+        pair = check_request(self.cfg, spk_embed, prompt_feat, prompt_h)
+        p_len = 0 if pair is None else len(pair[0])
 
         mu_y, c, y_len = self.prepare_stream(
             text, lang=lang, phone=phone, spk_embed=spk_embed,
             length_scale=length_scale, prepped=prepped,
         )
         p_head, t_mel = long_form_shapes(
-            y_len, prompt_feat is not None, attention,
+            y_len, pair is not None, attention,
             self.cfg.tts.cfm.estimator.banded_chunk, n_seq,
         )
         t_total = p_head + t_mel
@@ -510,8 +494,7 @@ class Synthesizer:
         mu = np.zeros((1, t_total, 80), np.float32)
         cond = np.zeros((1, t_total, 80), np.float32)
         if p_len:
-            mu[0, :p_len] = prompt_h
-            cond[0, :p_len] = prompt_feat
+            cond[0, :p_len], mu[0, :p_len] = pair  # prompt_feat into cond, prompt_h into mu
         mu[0, p_len : p_len + y_len] = mu_y[:y_len]
         mask = (np.arange(t_total) < p_len + y_len).astype(np.float32)[None, :, None]
         dev = self.device
@@ -532,28 +515,105 @@ class Synthesizer:
         wav, _ = hift_mod.hift_vocode_auto(self.hift, mel)
         if pcm16:
             wav = to_pcm16(wav)
-        num_samples = y_len * self.cfg.audio.hop_length
-        wav_np = wav[0, :num_samples].cpu().numpy()
+        wav_np = wav[0, : y_len * self.cfg.audio.hop_length].cpu().numpy()
         mel_np = mel[0, :y_len].float().cpu().numpy() if return_mel else None
         if pcm16 and dequantize:
             wav_np = wav_np.astype(np.float32) / 32767.0
-        t3 = time.perf_counter()
+        return self._timed_result(wav_np, mel_np, y_len, (t0, t1, t2, time.perf_counter()))
 
-        audio_seconds = num_samples / self.cfg.audio.sample_rate
-        elapsed = t3 - t0
-        return SynthesisResult(
-            wav=wav_np,
-            mel=mel_np,
-            mel_frames=y_len,
-            rtf=elapsed / max(audio_seconds, 1e-9),
-            timings={
-                "frontend_and_duration": t1 - t0,
-                "mel": t2 - t1,
-                "vocoder": t3 - t2,
-                "total": elapsed,
-                "audio_seconds": audio_seconds,
-            },
+    def _noise(self, frames: int) -> torch.Tensor:
+        """The seed-0 noise buffer, extended deterministically past its
+        15000 frames."""
+        if frames <= self.noise.shape[1]:
+            return self.noise
+        return rand_noise_extended(frames, device=self.device)
+
+    def _stage_texts(self, items):
+        """The dispatch's first staging: each item's g2p (or its "_prepped"),
+        padded to the batch's largest text bucket, and its speaker, sent to
+        the device. Returns (the g2p results, (features (5, B, T_text), text
+        lengths (B,), speakers (B, spk_embed_dim)))."""
+        with span("batch.stage"):
+            prepped = [
+                it.get("_prepped")
+                or self.prepare_text(it["text"], it.get("lang", "yue"), it.get("phone"))
+                for it in items
+            ]
+            b = len(items)
+            t_text = max(p[2] for p in prepped)
+            feats = np.zeros((5, b, t_text), np.int64)  # x, tone, word_pos, syllable_pos, lang
+            x_lengths = np.zeros((b,), np.int64)
+            for i, (arrs, n, _) in enumerate(prepped):
+                for f, a in enumerate(arrs):
+                    feats[f, i, : a.shape[1]] = a[0]
+                x_lengths[i] = n[0]
+            spk = np.zeros((b, self.cfg.tts.spk_embed_dim), np.float32)
+            for i, it in enumerate(items):
+                if it.get("spk_embed") is not None:
+                    spk[i] = it["spk_embed"]
+            return prepped, tuple(_to_device(a, self.device) for a in (feats, x_lengths, spk))
+
+    def _stage_prompts(self, pairs, t_prompt: int):
+        """The dispatch's second staging: the checked prompt pairs (None: no
+        prompt) padded to t_prompt frames, on the device, and their lengths,
+        on the host (read there: no device sync)."""
+        with span("batch.stage"):
+            prompts = np.zeros((2, len(pairs), t_prompt, 80), np.float32)  # feat, h
+            p_lens = np.zeros((len(pairs),), np.int32)
+            for i, pair in enumerate(pairs):
+                if pair is not None:
+                    p_lens[i] = len(pair[0])
+                    prompts[:, i, : p_lens[i]] = pair
+            return _to_device(prompts, self.device), torch.from_numpy(p_lens)
+
+    def _enqueue(self, texts, prompts, t_mel: int, n_timesteps: int, length_scale: float,
+                 pcm16: bool, noise: torch.Tensor, clock=None):
+        """The mel phase at the (text, mel, prompt) bucket and the vocoder,
+        enqueued on the device: returns (the mel output, the waveform, int16
+        with pcm16). With `clock` (a list), the device is waited for after
+        the mel phase and the time appended."""
+        (x, tone, word_pos, syllable_pos, lang_ids), x_lengths, spk = texts
+        prompts_d, p_lens = prompts
+        out = tts_mod.synthesize_mel(
+            self.tts, x, x_lengths, lang_ids, tone, word_pos, syllable_pos, spk,
+            prompts_d[0], prompts_d[1], p_lens,
+            t_mel_max=t_mel, n_timesteps=n_timesteps, rand_noise=noise,
+            length_scale=length_scale,
         )
+        if clock is not None:
+            self._sync()
+            clock.append(time.perf_counter())
+        wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
+        if pcm16:
+            wav = to_pcm16(wav)
+        return out, wav
+
+    def _read_back(self, out, wav, b_real: int, return_mel: bool):
+        """Copies of the first b_real rows' mel lengths, waveforms and (with
+        return_mel) mels to pinned host memory, enqueued behind CUDA events;
+        returns the `finalize` that waits for those copies alone and builds
+        the SynthesisResults (rtf nan, no timings)."""
+        lens_rb = _Readback(out.mel_lengths[:b_real])
+        wav_rb = _Readback(wav[:b_real])
+        mel_rb = _Readback(out.mel[:b_real]) if return_mel else None
+        hop = self.cfg.audio.hop_length
+
+        def finalize():
+            lens, wav_np = lens_rb.numpy(), wav_rb.numpy()
+            mel_np = mel_rb.numpy() if return_mel else None
+            results = []
+            for i in range(b_real):
+                frames = int(lens[i])
+                results.append(SynthesisResult(
+                    wav=wav_np[i, : frames * hop],
+                    mel=mel_np[i, :frames] if return_mel else None,
+                    mel_frames=frames,
+                    rtf=float("nan"),
+                    timings={},
+                ))
+            return results
+
+        return finalize
 
     @torch.inference_mode()
     def synthesize_batch_dispatch(
@@ -586,49 +646,26 @@ class Synthesizer:
         not overlap. pcm16=True rounds the waveform to int16 on the device
         and returns it as int16.
 
-        Raises ValueError for a half or mismatched prompt pair,
+        Raises ValueError naming the first item that fails `check_request`,
         OverLongBatchItems for items past the 15000-frame bucket (with
         their indices) and NoiseBufferExceeded when prompt + mel buckets
         pass the noise buffer."""
         b_real = len(items)
         if b_real == 0:
             return lambda: []
+        pairs = []
+        for i, it in enumerate(items):
+            try:
+                pairs.append(check_request(self.cfg, it.get("spk_embed"),
+                                           it.get("prompt_feat"), it.get("prompt_h")))
+            except ValueError as e:
+                raise ValueError(f"item {i}: {e}") from e
         b_pad = 1 << (b_real - 1).bit_length()  # the next power of two
         items = list(items) + [items[0]] * (b_pad - b_real)
-        bad_pair = [
-            i for i, it in enumerate(items[:b_real])
-            if (it.get("prompt_feat") is None) != (it.get("prompt_h") is None)
-            or (it.get("prompt_feat") is not None
-                and len(it["prompt_feat"]) != len(it["prompt_h"]))
-        ]
-        if bad_pair:
-            raise ValueError(
-                f"items {bad_pair} have a mismatched cloning prompt: prompt_feat and "
-                "prompt_h must be given together with equal frame counts "
-                "(PromptExtractor returns the aligned pair)"
-            )
-        dev = self.device
-        with span("batch.stage"):
-            prepped = [
-                it.get("_prepped")
-                or self.prepare_text(it["text"], it.get("lang", "yue"), it.get("phone"))
-                for it in items
-            ]
-            t_text = max(p[2] for p in prepped)
-            feats = np.zeros((5, b_pad, t_text), np.int64)  # x, tone, word_pos, syllable_pos, lang
-            x_lengths = np.zeros((b_pad,), np.int64)
-            for i, (arrs, n, _) in enumerate(prepped):
-                for f, a in enumerate(arrs):
-                    feats[f, i, : a.shape[1]] = a[0]
-                x_lengths[i] = n[0]
-            spk = np.zeros((b_pad, self.cfg.tts.spk_embed_dim), np.float32)
-            for i, it in enumerate(items):
-                if it.get("spk_embed") is not None:
-                    spk[i] = it["spk_embed"]
-            feats_d, x_len_d, spk_d = (_to_device(a, dev) for a in (feats, x_lengths, spk))
-        x, tone, word_pos, syllable_pos, lang_ids = feats_d
+        pairs += [pairs[0]] * (b_pad - b_real)
+        _, texts = self._stage_texts(items)
 
-        y_lens = self.duration_frames_batch(feats_d, x_len_d, spk_d)
+        y_lens = self.duration_frames_batch(*texts)
         y_max = int(np.ceil(y_lens.max() * length_scale))
         if y_max > bkt.MEL_BUCKETS[-1]:
             # padding rows copy row 0, so the real rows name every culprit
@@ -640,55 +677,18 @@ class Synthesizer:
                 [i for i in range(b_real) if need[i] > bkt.MEL_BUCKETS[-1]],
             )
         t_mel = bkt.pick_bucket(max(y_max, 1), bkt.MEL_BUCKETS)
-
-        p_lens = np.array([0 if it.get("prompt_feat") is None else len(it["prompt_feat"])
-                           for it in items], np.int32)
-        t_prompt = bkt.pick_prompt_bucket(int(p_lens.max()), t_mel)
+        p_max = max(0 if pair is None else len(pair[0]) for pair in pairs)
+        t_prompt = bkt.pick_prompt_bucket(p_max, t_mel)
         if t_prompt + t_mel > self.noise.shape[1]:
             raise NoiseBufferExceeded(
                 f"prompt ({t_prompt}) + mel ({t_mel}) frames exceed the "
                 f"{self.noise.shape[1]}-frame noise buffer; synthesize such items alone "
                 "(synthesize / synthesize_long extend the noise)"
             )
-        with span("batch.stage"):
-            prompts = np.zeros((2, b_pad, t_prompt, 80), np.float32)  # prompt_feat, prompt_h
-            for i, it in enumerate(items):
-                if p_lens[i]:
-                    prompts[0, i, : p_lens[i]] = it["prompt_feat"]
-                    prompts[1, i, : p_lens[i]] = it["prompt_h"]
-            prompts_d = _to_device(prompts, dev)
-
-        out = tts_mod.synthesize_mel(
-            self.tts, x, x_len_d, lang_ids, tone, word_pos, syllable_pos, spk_d,
-            prompts_d[0], prompts_d[1],
-            torch.from_numpy(p_lens),  # read on the host: no device sync
-            t_mel_max=t_mel, n_timesteps=n_timesteps, rand_noise=self.noise,
-            length_scale=length_scale,
-        )
-        wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
-        if pcm16:
-            wav = to_pcm16(wav)
-        lens_rb = _Readback(out.mel_lengths[:b_real])
-        wav_rb = _Readback(wav[:b_real])
-        mel_rb = _Readback(out.mel[:b_real]) if return_mel else None
-        hop = self.cfg.audio.hop_length
-
-        def finalize():
-            lens, wav_np = lens_rb.numpy(), wav_rb.numpy()
-            mel_np = mel_rb.numpy() if return_mel else None
-            results = []
-            for i in range(b_real):
-                frames = int(lens[i])
-                results.append(SynthesisResult(
-                    wav=wav_np[i, : frames * hop],
-                    mel=mel_np[i, :frames] if return_mel else None,
-                    mel_frames=frames,
-                    rtf=float("nan"),
-                    timings={},
-                ))
-            return results
-
-        return finalize
+        prompts = self._stage_prompts(pairs, t_prompt)
+        out, wav = self._enqueue(texts, prompts, t_mel, n_timesteps, length_scale, pcm16,
+                                 self.noise)
+        return self._read_back(out, wav, b_real, return_mel)
 
     def synthesize_batch(
         self,
@@ -716,12 +716,13 @@ class Synthesizer:
         log_fn=None,
     ) -> int:
         """Drive each (batch, text, mel, prompt, steps) shape of the serving
-        path once before traffic arrives, on zero inputs: the duration pass
-        at each (batch, text bucket), the mel phase and the vocoder at each
-        combination. In eager PyTorch this builds the CUDA kernels at their
-        first use and warms cuDNN's algorithm choice and the caching
-        allocator at those shapes. It compiles nothing and captures no CUDA
-        graph: later requests still launch op by op.
+        path once before traffic arrives, through the dispatch's own steps on
+        zero inputs: the duration pass at each (batch, text bucket), the mel
+        phase and the vocoder at each combination. In eager PyTorch this
+        builds the CUDA kernels at their first use and warms cuDNN's
+        algorithm choice and the caching allocator at those shapes. It
+        compiles nothing and captures no CUDA graph: later requests still
+        launch op by op.
 
         batch_sizes follows the engine's power-of-two padding ((1, 2, 4, 8)
         covers max_batch=8). Defaults: text buckets <= 128, mel buckets <=
@@ -737,26 +738,19 @@ class Synthesizer:
             spk = torch.zeros((b, self.cfg.tts.spk_embed_dim), device=dev)
             ones = torch.ones((b,), dtype=torch.int64, device=dev)
             for t_text in tb:
-                x = torch.zeros((b, t_text), dtype=torch.int64, device=dev)
-                self._durations([x] * 5, ones, spk)
+                texts = ((torch.zeros((b, t_text), dtype=torch.int64, device=dev),) * 5,
+                         ones, spk)
+                self.duration_frames_batch(*texts)
                 count += 1
                 for t_mel in mb:
                     for t_prompt in prompt_buckets:
-                        pf = torch.zeros((b, t_prompt, 80), device=dev)
-                        plen = torch.zeros((b,), dtype=torch.int32)
-                        noise = self.noise
-                        if t_prompt + t_mel > noise.shape[1]:
-                            noise = rand_noise_extended(t_prompt + t_mel, device=dev)
+                        prompts = (torch.zeros((2, b, t_prompt, 80), device=dev),
+                                   torch.zeros((b,), dtype=torch.int32))
+                        noise = self._noise(t_prompt + t_mel)
                         for steps in n_timesteps:
                             if log_fn:
                                 log_fn(f"warmup b={b} {(t_text, t_mel, t_prompt, int(steps))}")
-                            out = tts_mod.synthesize_mel(
-                                self.tts, x, ones, x, x, x, x, spk, pf, pf, plen,
-                                t_mel_max=t_mel, n_timesteps=int(steps), rand_noise=noise,
-                            )
-                            wav, _ = hift_mod.hift_vocode_auto(self.hift, out.mel)
-                            if pcm16:
-                                to_pcm16(wav)
+                            self._enqueue(texts, prompts, t_mel, int(steps), 1.0, pcm16, noise)
                             count += 3 if b == 1 else 2
         self._sync()
         return count

@@ -1,7 +1,8 @@
 """The port's batched synthesis (`Synthesizer.synthesize_batch_dispatch` /
 `synthesize_batch` / `warmup`) against the JAX package's, and against its own
 single-request path, on the CPU with the small configuration and the JAX
-package's random trees, 2 Euler steps.
+package's random trees, 2 Euler steps; and the one request check at every
+request entry.
 
 Bars: against the JAX package as in test_torch_port_e2e.py (mel frames equal,
 mel MAE < 1e-2, waveform atol 1e-4); batched against single as the JAX
@@ -12,12 +13,14 @@ import wave
 
 import numpy as np
 import pytest
+import torch
 
 from jyutvoice_tpu.pipeline.synthesize import Synthesizer as JaxSynthesizer
 from jyutvoice_tpu.weights import provision
 from jyutvoice_tpu_torch.cli import infer
 from jyutvoice_tpu_torch.models import tts as tts_mod
 from jyutvoice_tpu_torch.pipeline import buckets as bkt
+from jyutvoice_tpu_torch.pipeline.server import ServingEngine, StreamingLane
 from jyutvoice_tpu_torch.pipeline.synthesize import (
     NoiseBufferExceeded,
     OverLongBatchItems,
@@ -68,12 +71,40 @@ def test_batch_matches_jax_batch(trees, port):
         assert np.isnan(g.rtf) and g.timings == {}
 
 
-def test_batch_matches_single(port):
+def _same(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def test_batch_matches_single(port, monkeypatch):
+    """A padded batch of mixed items agrees with single requests; a batch of
+    one and `synthesize` run one short path: the same `synthesize_mel` call,
+    bit-equal waveform and mel."""
     got = port.synthesize_batch(_items(), n_timesteps=2)
     for it, g in zip(_items(), got):
         ref = port.synthesize(n_timesteps=2, **it)
         assert g.mel_frames == ref.mel_frames
         np.testing.assert_allclose(g.wav, ref.wav, atol=5e-4, rtol=1e-3)
+
+    calls = []
+    real = tts_mod.synthesize_mel
+
+    def spy(model, *args, **kw):
+        calls.append((args, kw))
+        return real(model, *args, **kw)
+
+    monkeypatch.setattr(tts_mod, "synthesize_mel", spy)
+    for it in _items():
+        ref = port.synthesize(n_timesteps=2, **it)
+        (one,) = port.synthesize_batch_dispatch([it], n_timesteps=2)()
+        (ref_args, ref_kw), (one_args, one_kw) = calls[-2:]
+        assert len(calls) % 2 == 0 and ref_kw.keys() == one_kw.keys()
+        assert all(_same(a, b) for a, b in zip(ref_args, one_args))
+        assert all(_same(ref_kw[k], one_kw[k]) for k in ref_kw)
+        assert one.mel_frames == ref.mel_frames
+        np.testing.assert_array_equal(one.wav, ref.wav)
+        np.testing.assert_array_equal(one.mel, ref.mel)
 
 
 def test_batch_options(port):
@@ -119,6 +150,61 @@ def test_batch_error_paths(port, monkeypatch):
     with pytest.raises(NoiseBufferExceeded):
         port.synthesize_batch_dispatch(
             [dict(text="佢", phone="keoi5", prompt_feat=pf, prompt_h=pf)], n_timesteps=2)
+
+
+_PF = np.zeros((8, 80), np.float32)
+BAD_REQUESTS = {
+    "half_pair": (dict(prompt_feat=_PF), "BOTH"),
+    "wrong_width": (dict(prompt_feat=np.zeros((8, 79), np.float32),
+                         prompt_h=np.zeros((8, 79), np.float32)), r"\(T, 80\)"),
+    "unequal_lengths": (dict(prompt_feat=_PF, prompt_h=np.zeros((9, 80), np.float32)),
+                        "mismatched cloning prompt"),
+    "prompt_past_512": (dict(prompt_feat=np.zeros((600, 80), np.float32),
+                             prompt_h=np.zeros((600, 80), np.float32)),
+                        "past the largest prompt bucket"),
+    "spk_embed_2": (dict(spk_embed=np.zeros((2,), np.float32)), r"spk_embed must have shape"),
+}
+
+
+def _engine_submit(synth, **kw):
+    with ServingEngine(synth, max_batch=1, max_wait_ms=1.0, n_timesteps=1) as engine:
+        engine.submit("佢", phone="keoi5", **kw).result(timeout=120)
+
+
+def _lane_submit(synth, **kw):
+    with StreamingLane(synth, max_streams=1, chunk_frames=50, n_timesteps=1,
+                       prompt_frames=64) as lane:
+        lane.submit("佢", phone="keoi5", **kw)
+
+
+ENTRIES = {
+    "synthesize": lambda s, **kw: s.synthesize("佢", phone="keoi5", n_timesteps=1, **kw),
+    "synthesize_long": lambda s, **kw: s.synthesize_long("佢", phone="keoi5", n_timesteps=1,
+                                                         **kw),
+    "synthesize_batch_dispatch": lambda s, **kw: s.synthesize_batch_dispatch(
+        [dict(text="好", phone="hou2"), dict(text="佢", phone="keoi5", **kw)], n_timesteps=1),
+    "synthesize_streaming": lambda s, **kw: next(s.synthesize_streaming(
+        "佢", phone="keoi5", n_timesteps=1, **kw)),
+    "engine_submit": _engine_submit,
+    "lane_submit": _lane_submit,
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_REQUESTS))
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_malformed_request_fails_at_every_entry(port, monkeypatch, entry, case):
+    """Every request entry rejects a malformed request with the same
+    ValueError before any work: no g2p, no device call."""
+    def no_work(*a, **k):
+        raise AssertionError("request work started before the request check")
+
+    monkeypatch.setattr(port, "prepare_text", no_work)
+    monkeypatch.setattr(tts_mod, "synthesize_mel", no_work)
+    kw, match = BAD_REQUESTS[case]
+    with pytest.raises(ValueError, match=match) as ei:
+        ENTRIES[entry](port, **kw)
+    if entry == "synthesize_batch_dispatch":
+        assert str(ei.value).startswith("item 1: ")
 
 
 def test_warmup_drives_each_shape(port, monkeypatch):

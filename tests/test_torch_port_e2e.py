@@ -77,7 +77,8 @@ def test_past_the_bucket_table_raises(synths, monkeypatch):
     synthesize_long with this call's g2p output and its PCM16 choice, as
     tests/test_pipeline.py holds the JAX package to."""
     _, port_s = synths
-    monkeypatch.setattr(port_s, "duration_frames", lambda *a: 20000)
+    monkeypatch.setattr(port_s, "duration_frames_batch",
+                        lambda *a: np.array([20000.0], np.float32))
     called = {}
 
     def spy(text, **kw):
