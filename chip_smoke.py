@@ -6,12 +6,12 @@
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 is turned off (parity with the f32 reference path);
-  2. build: the five CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
+  2. build: the six CUDA kernel sources from jyutvoice_tpu_torch/csrc/,
      nvcc in parallel; per compiled kernel, ptxas's registers and spills and
      the count of HGMMA (wgmma) instructions in its SASS (kernels 1 and 3,
-     kernel 2 at C=128 and C=64, and every dK/dV and dQ kernel of kernels 4
-     and 5 at D=64 and D=128 must have them; the int8 GEMM at each tile
-     width its IGMMA, the integer wgmma), and ptxas's warnings;
+     kernel 2 at C=128 and C=64, every dK/dV and dQ kernel of kernels 4
+     and 5 at D=64 and D=128 and the f32 GEMM must have them; the int8 GEMM
+     its IGMMA, the integer wgmma), and ptxas's warnings;
   3. kernel 1 (flash attention) against its plain version on the valid rows
      at the estimator's shapes (T = 512, 576, 640, chunk rules 50/-1 and
      100/2, T = 1600 = 1536 + a 64-frame prompt, T = 4160, D = 128, ragged
@@ -194,7 +194,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      bytes bound (bound_ms) and, apart, the x_q and sx round trip the design
      adds (x_q_ms), the plain composition's times (plain_ms) and
      torch._int_mm's alone (library_ms), and the wrapper's host cost per
-     call.
+     call;
+     11e, the DiT's 3xTF32 GEMM (csrc/f32_gemm.cu) through its route
+     (nn/f32_gemm.py::linear) at the block's four (K, N) on 28500 rows (a
+     DiT call's packed rows in the DiT cell): one launch a call, its
+     largest and mean absolute errors against an f64 product within 2x of
+     cuBLAS's f32 GEMM's on the same inputs (the signed mean beside them),
+     its difference from the plain version within the sum of the two's
+     largest errors, and the CUDA-event times of the kernel, the plain
+     version and F.linear (library_ms) beside the 3xTF32 and f32 FFMA
+     bounds, with TFLOP/s;
+     11f, the DiT decoder at its published widths (random trees) in a
+     Synthesizer: a group of 16 requests of up to ~900 frames (the DiT
+     cell's group; ~22000 packed rows a call) through synthesize_batch_dispatch
+     at 10 steps, 88 f32 GEMM launches an estimator call (the kernel line
+     counts them), and the same group with the block GEMMs on the plain
+     version, the two mels within 1e-4 of the largest magnitude.
   12. the serving export at full width (seeded random trees, 10 steps,
      phase 6's sentence and text bucket): 12a aot_compile at the 512
      bucket, 12b with phase 6's 100-frame prompt in its prompt bucket, 12c
@@ -446,6 +461,8 @@ def phase_build():
     log(f"  int8_linear: IGMMA in SASS: {igmma}")
     if len(igmma) != 1 or not all(igmma.values()):
         fail(f"csrc/int8_linear.cu: an int8 GEMM lacks IGMMA in its SASS: {igmma}")
+    if not hgmma["f32_gemm"] or not all(hgmma["f32_gemm"].values()):
+        fail(f"csrc/f32_gemm.cu has a kernel without HGMMA in its SASS: {hgmma['f32_gemm']}")
     # kernel 2: the instantiations of the main path's stages (C=128 and 64)
     stage = {_short_kernel_name(f): n for f, n in hgmma["resblock_stage"].items()}
     for c in (128, 64):
@@ -984,7 +1001,8 @@ def phase_train_reference():
     per_call = est.num_mid_blocks + 2
     want = {"flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
             "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call,
-            "flash_attention": 0, "resblock_stage": 0, "int8_quant_rows": 0, "int8_gemm": 0}
+            "flash_attention": 0, "resblock_stage": 0, "f32_gemm": 0, "int8_quant_rows": 0,
+            "int8_gemm": 0}
     loss_gap = {k: abs(card["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
     diff = sum(float(torch.sum((card["grads"][n] - g) ** 2)) for n, g in cpu["grads"].items())
     ref = sum(float(torch.sum(g ** 2)) for g in cpu["grads"].values())
@@ -1084,7 +1102,8 @@ def run_request(synth, label, expect_bucket=None, **kw):
         and res.wav.shape == (res.mel_frames * 480,)
         and launches == {"flash_attention": want_flash, "resblock_stage": 2, "flash_stock": 0,
                          "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
-                         "flash_stock_bwd_prep": 0, "int8_quant_rows": 0, "int8_gemm": 0}
+                         "flash_stock_bwd_prep": 0, "f32_gemm": 0, "int8_quant_rows": 0,
+                         "int8_gemm": 0}
         and (expect_bucket is None or bucket == expect_bucket)
     )
     t = {k: round(v, 6) for k, v in res.timings.items()}
@@ -2326,7 +2345,7 @@ def phase_long_form(synth):
             and launches == {"flash_attention": want_k1, "flash_stock": want_k3,
                              "resblock_stage": 2, "flash_stock_bwd_dkv": 0,
                              "flash_stock_bwd_dq": 0, "flash_stock_bwd_prep": 0,
-                             "int8_quant_rows": 0, "int8_gemm": 0}
+                             "f32_gemm": 0, "int8_quant_rows": 0, "int8_gemm": 0}
         )
         t = {k: round(v, 6) for k, v in res.timings.items()}
         log(f"long-form {label}: mel_frames={res.mel_frames} t_total={head + t_mel} "
@@ -3208,6 +3227,11 @@ def phase_int8(params_tts, params_hift, scale, smi):
 
 # the estimator's int8 linears: (K, N, bias), q/k/v then o, ff_in, ff_out
 INT8_LINEARS = ((256, 512, False), (512, 256, True), (256, 1024, True), (1024, 256, True))
+# the DiT's block GEMMs (phase 11e): a call's packed valid rows in the DiT
+# cell (two 16-request halves of ~890 frames for guidance), and (name, K, N)
+F32_GEMM_ROWS = 28500
+F32_GEMM_LINEARS = (("qkv", 1024, 3072), ("o", 1024, 1024), ("ff_in", 1024, 2048),
+                    ("ff_out", 2048, 1024))
 INT8_ROWS = (49152, 1024)  # a batch-16 group at the 1536 bucket with CFG; a small one
 
 
@@ -3287,6 +3311,149 @@ def phase_int8_kernels(smi):
             del x, x_q, sx, sx1, y, got, want
     torch.cuda.empty_cache()
     return cases
+
+
+def _gemm_errors(y, want):
+    """Largest, mean absolute and mean signed error of y against an f64 want."""
+    d = y.double() - want
+    return float(d.abs().max()), float(d.abs().mean()), float(d.mean())
+
+
+def phase_f32_gemm(smi):
+    """11e, the DiT's 3xTF32 GEMM (csrc/f32_gemm.cu) at the block's four
+    (K, N) on F32_GEMM_ROWS rows (a DiT call's packed valid rows in the DiT
+    cell): against its plain version and an f64 product beside cuBLAS's f32
+    GEMM (F.linear, TF32 off) on the same seeded inputs (largest, mean
+    absolute and mean signed error), one launch a call through the route
+    `f32_gemm.linear`, its difference from the plain version within the
+    sum of the two's largest errors against f64; CUDA-event times of
+    the kernel, the plain version and F.linear beside the 3xTF32 bound
+    (three TF32 products a product at 495 TFLOP/s) and the f32 FFMA bound
+    (67 TFLOP/s), and the kernel's and cuBLAS's TFLOP/s of f32 work.
+    Returns the cases by name for the kernel line."""
+    import torch
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import f32_gemm
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+    m = F32_GEMM_ROWS
+    cases = {}
+    for name, k, n in F32_GEMM_LINEARS:
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = (torch.rand(n, k, device="cuda", generator=g) * 2 - 1) / k ** 0.5
+        b = torch.randn(n, device="cuda", generator=g) * 0.1
+        images = f32_gemm.prepare_weight(w)
+        kernels.reset_launch_counts()
+        got = f32_gemm.linear(x, images, b)
+        launches = kernels.LAUNCHES["f32_gemm"]
+        want = F.linear(x.double(), w.double(), b.double())
+        err = _gemm_errors(got, want)
+        err_lib = _gemm_errors(F.linear(x, w, b), want)
+        plain = f32_gemm.linear_plain(x, images, b)
+        err_plain = _gemm_errors(plain, want)
+        vs_plain = float((got - plain).abs().max())
+        del plain
+        flop = 2.0 * m * n * k
+        moved = 4 * (m * k + 2 * n * k + n + m * n)
+        case = dict(
+            ms=cuda_time_ms(lambda: f32_gemm.linear(x, images, b), 20),
+            plain_ms=cuda_time_ms(lambda: f32_gemm.linear_plain(x, images, b), 5),
+            library_ms=cuda_time_ms(lambda: F.linear(x, w, b), 20),
+            bound_ms=bound(moved, 3 * flop, PEAK_TF32_FLOPS)[0],
+            bound_f32_ms=bound(moved, flop, PEAK_F32_FLOPS)[0],
+            max_err=err[0], mean_abs_err=err[1], mean_err=err[2],
+            library_max_err=err_lib[0], library_mean_abs_err=err_lib[1],
+            library_mean_err=err_lib[2], plain_max_err=err_plain[0], max_diff_plain=vs_plain)
+        case["tflops"] = flop / case["ms"] / 1e9
+        case["library_tflops"] = flop / case["library_ms"] / 1e9
+        case["roofline_pct"] = 100.0 * case["bound_ms"] / case["ms"]
+        cases[name] = case
+        log(f"f32 GEMM {name} ({m} x {k} -> {n}): launches {launches}; "
+            f"{json.dumps({c: float(f'{v:.4g}') for c, v in case.items()})} ({smi})")
+        if launches != 1 or not (err[0] <= 2 * err_lib[0] and err[1] <= 2 * err_lib[1]):
+            fail(f"the f32 GEMM at {name} did not launch once or is less accurate than 2x "
+                 f"cuBLAS's f32 GEMM against f64")
+        if vs_plain > err[0] + err_plain[0]:
+            fail(f"the f32 GEMM at {name} differs from its plain version by {vs_plain:.3g}, more "
+                 f"than the two's largest errors against f64 ({err[0]:.3g} + {err_plain[0]:.3g})")
+        del x, w, b, images, got, want
+    torch.cuda.empty_cache()
+    return cases
+
+
+DIT_GROUP = 16  # the DiT cell's group: 16 requests, 2 x 16 rows with guidance
+DIT_FRAMES = 890  # the frames a zero speaker gets; seeded speakers spread them
+
+
+def phase_dit(smi):
+    """11f, the DiT decoder at its published widths (random trees, seeds
+    0 and 1) in a Synthesizer on the card: a group of DIT_GROUP requests
+    (one sentence stretched to DIT_FRAMES frames, a seeded speaker each)
+    through `synthesize_batch_dispatch` at 10 steps, the launch counts
+    reset just before it: 88 launches of the f32 GEMM per estimator call
+    (one call a step; 4 a block). Then the same group with the blocks'
+    GEMMs on the plain version (`f32_gemm.linear_plain`, three cuBLAS f32
+    products): the two mels within 1e-4 of the largest magnitude (the DiT
+    tests' bar). Each group timed on the host clock behind a synchronize.
+    Returns the kernel group's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from jyutvoice_tpu_torch import config as C
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import f32_gemm
+    from jyutvoice_tpu_torch.pipeline.synthesize import Synthesizer
+    from jyutvoice_tpu_torch.weights import random_init
+
+    base = C.JyutVoiceConfig()
+    cfm = dataclasses.replace(base.tts.cfm, estimator_kind="dit", dit=C.DiTConfig())
+    cfg = dataclasses.replace(base, tts=dataclasses.replace(base.tts, cfm=cfm))
+    steps, depth = 10, cfg.tts.cfm.dit.depth
+    synth = Synthesizer(cfg, random_init.init_tts_tree(cfg.tts, seed=0),
+                        random_init.init_hift_tree(cfg.hift, seed=1), device="cuda")
+    yue = dict(text="佢 係 邊 個", lang="yue", phone="keoi5 hai6 bin1 go3")
+    scale = scale_for(synth, DIT_FRAMES, **yue)
+    rng = np.random.default_rng(11)
+    items = [dict(yue, spk_embed=rng.standard_normal(cfg.tts.spk_embed_dim).astype(np.float32))
+             for _ in range(DIT_GROUP)]
+
+    def group():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = synth.synthesize_batch_dispatch(items, n_timesteps=steps, length_scale=scale)()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    group()  # warm: the shapes, and the blocks' weight images
+    kernels.reset_launch_counts()
+    res, ms = group()
+    launches = dict(kernels.LAUNCHES)
+    route = f32_gemm.linear
+    f32_gemm.linear = lambda x, images, bias=None: f32_gemm.linear_plain(x, images, bias)
+    try:
+        kernels.reset_launch_counts()
+        plain, plain_ms = group()
+        plain_launches = kernels.LAUNCHES["f32_gemm"]
+    finally:
+        f32_gemm.linear = route
+    frames = [r.mel_frames for r in res]
+    gap = max(float(np.abs(a.mel - b.mel).max()) for a, b in zip(res, plain)) \
+        / max(float(np.abs(b.mel).max()) for b in plain)
+    log(f"DiT group: {DIT_GROUP} requests, frames {min(frames)}-{max(frames)}, "
+        f"{2 * sum(frames)} packed rows a call, {steps} steps: launches {launches}; "
+        f"{ms:.1f} ms, plain GEMMs {plain_ms:.1f} ms ({plain_launches} f32 GEMM launches); "
+        f"mel gap to the plain GEMMs {gap:.3g} of the largest ({smi})")
+    if launches["f32_gemm"] != steps * 4 * depth or plain_launches \
+            or not all(np.isfinite(r.mel).all() for r in res) or gap > 1e-4:
+        fail(f"the DiT group did not launch the f32 GEMM {steps * 4 * depth} times or differs "
+             f"from its plain GEMMs by more than 1e-4")
+    del synth, res, plain
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_warmup_long(params_tts, params_hift, smi):
@@ -4194,8 +4361,10 @@ def main():
     wl_counts = timed("11b warmup_long", phase_warmup_long, params_tts, params_hift, smi)
     timed("11c host MAS", phase_host_mas, mas_inputs, smi)
     int8_cases = timed("11d int8 linear kernels", phase_int8_kernels, smi)
+    f32_cases = timed("11e f32 GEMM kernel", phase_f32_gemm, smi)
+    dit_counts = timed("11f DiT", phase_dit, smi)
     del mas_inputs
-    counts = {k: counts[k] + int8_counts[k] + wl_counts[k] for k in counts}
+    counts = {k: counts[k] + int8_counts[k] + wl_counts[k] + dit_counts[k] for k in counts}
     flash["max_abs_err"] = max(flash["max_abs_err"], int8_err)
     stage["max_abs_err"] = max(stage["max_abs_err"], int8_stage_err)
     for kernel, cases in ((flash, int8_flash), (stage, int8_stage)):
@@ -4253,6 +4422,13 @@ def main():
                       "is nn/quant.py::linear_q_plain",
              launches={"int8_quant_rows": counts["int8_quant_rows"],
                        "int8_gemm": counts["int8_gemm"]}, **int8_cases),
+        dict(name="f32_gemm", route="cuda",
+             source="jyutvoice_tpu_torch/csrc/f32_gemm.cu",
+             replaces="none: the DiT exists only in the port (its plain reference "
+                      "tests/reference_dit.py), so no JAX computation; a kernel of the port for "
+                      "the f32 GEMMs' FFMA ceiling, whose plain version is "
+                      "nn/f32_gemm.py::linear_plain",
+             launches=counts["f32_gemm"], **f32_cases),
     ]}
     log(f"phase seconds: {json.dumps(PHASE_S)}, whole run "
         f"{time.perf_counter() - t_start:.1f} s")

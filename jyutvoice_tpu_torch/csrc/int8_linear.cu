@@ -42,16 +42,13 @@
 //    slower at small M; 256 was slower still, and two consumers on separate
 //    tiles, each with its own ring, were no faster.
 //
-// Tensor maps are encoded on the host for every launch (libcuda's
-// cuTensorMapEncodeTiled, looked up through the runtime, so the library
-// links nothing but cudart) and passed by value, so a launch captured in a
-// CUDA graph keeps its own.
+// Tensor maps: `tma.cuh`, encoded for every launch.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "tma.cuh"
 
 namespace jv {
 namespace i8 {
@@ -133,17 +130,6 @@ template <int N>
 __device__ __forceinline__ void fence_acc(uint32_t (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// a 2-D tile from a tensor map (coordinates innermost first) into shared
-// memory; its bytes count against `bar`'s transaction count
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // shared memory: NSTAGE stages of a 128-row A tile and a 64-row B tile,
@@ -271,41 +257,10 @@ int8_gemm_sm90(const __grid_constant__ CUtensorMap map_a,
 
 // ---- host side --------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                                  cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f) : nullptr;
-  }();
-  return fn;
-}
-
 // a (rows, K) int8 row-major matrix read in boxes of `box_rows` rows x BK
 // bytes, swizzled for wgmma; reads past the matrix fill zeros
 inline bool encode(CUtensorMap* map, const void* base, int rows, int K, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, K, box_rows, BK);
 }
 
 // the shared-memory attribute is set once (the first launch), not on every

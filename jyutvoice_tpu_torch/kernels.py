@@ -31,14 +31,15 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 KERNEL_SOURCES = ("flash_attention", "resblock_stage", "flash_stock", "flash_stock_bwd",
-                  "int8_linear")
+                  "int8_linear", "f32_gemm")
 # entry points counted in LAUNCHES: kernels 1-3, then kernels 4 and 5 and
 # the preparation of their operands (the three entry points of
-# csrc/flash_stock_bwd.cu), then the int8 linear's row quantization and
-# GEMM (the two entry points of csrc/int8_linear.cu)
+# csrc/flash_stock_bwd.cu), then the DiT's 3xTF32 GEMM (csrc/f32_gemm.cu),
+# then the int8 linear's row quantization and GEMM (the two entry points of
+# csrc/int8_linear.cu)
 KERNEL_NAMES = ("flash_attention", "resblock_stage", "flash_stock",
                 "flash_stock_bwd_dkv", "flash_stock_bwd_dq", "flash_stock_bwd_prep",
-                "int8_quant_rows", "int8_gemm")
+                "f32_gemm", "int8_quant_rows", "int8_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -36,6 +36,14 @@ padded buffer zeroed once a call (padded rows stay 0), runs RoPE and
 rows of its output back; the velocity's padded frames are 0. Where the
 mask holds no padding the blocks run on (B, T, D) as they are.
 
+The blocks' four GEMMs (q/k/v as one, out, ff_in, ff_out) run in 3xTF32
+on the tensor cores at f32 accuracy (`nn/f32_gemm.py`, a hand-written
+kernel on CUDA, its plain version on the CPU), from hi and lo images of the
+weights that each block builds at its first call (the q/k/v weights
+concatenated there once) and again only after its weights change; moving
+or casting the module (`to`, `cuda`, `cpu`) drops them at once. The adaLN,
+input, time and output linears stay on `F.linear`.
+
 Spans (`utils/observability.py`): `dit.embed` (time embedding, the
 modulations, the input projection, the conv position embedding and the
 packing), `dit.attn` and `dit.ff` (each block's two halves, norm to gated
@@ -61,7 +69,7 @@ from jyutvoice_tpu_torch.models.estimator import (
     attention_route,
     sinusoidal_pos_emb,
 )
-from jyutvoice_tpu_torch.nn import core
+from jyutvoice_tpu_torch.nn import core, f32_gemm
 from jyutvoice_tpu_torch.nn.attention import apply_rope_pairs, attention_core, rope_pairs_cos_sin
 from jyutvoice_tpu_torch.utils.observability import ESTIMATOR_ROWS, span
 
@@ -153,6 +161,8 @@ class DiTAttention(nn.Module):
         self.k = core.Linear(cfg.dim, inner)
         self.v = core.Linear(cfg.dim, inner)
         self.o = core.Linear(inner, cfg.dim)
+        self.qkv_gemm = f32_gemm.Operands(self.q, self.k, self.v)
+        self.o_gemm = f32_gemm.Operands(self.o)
 
     def rotate(self, x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
         """RoPE on the first `rope_heads` heads of (B, T, H, D) x, in place."""
@@ -167,16 +177,14 @@ class DiTAttention(nn.Module):
         that kernel 1 takes as they are; packed rows reach them through the
         padded buffer of `PackedRows.qkv`, and only the valid rows of the
         attention reach the out GEMM."""
-        w = torch.cat([self.q.weight, self.k.weight, self.v.weight])
-        bias = torch.cat([self.q.bias, self.k.bias, self.v.bias])
-        qkv = F.linear(x, w, bias)
+        qkv = self.qkv_gemm(x)
         if rows is not None:
             qkv = rows.qkv(qkv)
         b, t, _ = qkv.shape
         q, k, v = qkv.view(b, t, 3, self.heads, -1).unbind(2)
         q, k = self.rotate(q, *rope), self.rotate(k, *rope)
         o = attention_core(q, k, v, **ctx)
-        return self.o(o if rows is None else rows.pack(o))
+        return self.o_gemm(o if rows is None else rows.pack(o))
 
 
 class DiTBlock(nn.Module):
@@ -186,6 +194,15 @@ class DiTBlock(nn.Module):
         self.attn = DiTAttention(cfg)
         self.ff_in = core.Linear(cfg.dim, cfg.ff_mult * cfg.dim)
         self.ff_out = core.Linear(cfg.ff_mult * cfg.dim, cfg.dim)
+        self.ff_in_gemm = f32_gemm.Operands(self.ff_in)
+        self.ff_out_gemm = f32_gemm.Operands(self.ff_out)
+
+    def _apply(self, fn, *args, **kwargs):
+        """A move or cast of the block frees its GEMMs' weight images."""
+        out = super()._apply(fn, *args, **kwargs)
+        for gemm in (self.attn.qkv_gemm, self.attn.o_gemm, self.ff_in_gemm, self.ff_out_gemm):
+            gemm.drop()
+        return out
 
     def forward(self, h: Tensor, mod: Tensor, rope, ctx: dict,
                 rows: PackedRows | None = None) -> Tensor:
@@ -195,8 +212,8 @@ class DiTBlock(nn.Module):
         with span("dit.attn"):
             h = torch.addcmul(h, g1, self.attn(modulate(h, c1, s1), rope, ctx, rows))
         with span("dit.ff"):
-            y = F.gelu(self.ff_in(modulate(h, c2, s2)), approximate="tanh")
-            return torch.addcmul(h, g2, self.ff_out(y))
+            y = F.gelu(self.ff_in_gemm(modulate(h, c2, s2)), approximate="tanh")
+            return torch.addcmul(h, g2, self.ff_out_gemm(y))
 
 
 class DiT(nn.Module):

@@ -50,7 +50,12 @@ bar, one block at the published widths on the DiT cell's shapes, and the
 whole DiT at the published widths and depth 2 on a guidance-doubled batch
 at those shapes, its blocks on the packed valid rows, against
 `tests/reference_dit.py` (1e-4 of the reference's largest magnitude, as
-`test_torch_port_dit.py`).
+`test_torch_port_dit.py`). The DiT's 3xTF32 GEMM (csrc/f32_gemm.cu) at the
+block's four shapes against f64 beside cuBLAS's f32 GEMM over seeded draws
+(largest and mean absolute errors within 2x, the largest at M = 1 over all
+draws together; the mean signed error within 2x or cuBLAS's own sampling
+noise), its round-toward-zero shrink within 2 * 2^-24, and 88 launches
+per published-DiT call.
 """
 
 import pytest
@@ -280,7 +285,7 @@ def test_small_synthesizer_goes_through_both_kernels(cuda):
         "flash_attention": 2 * (est.num_mid_blocks + 2) * est.n_blocks,
         "resblock_stage": 3,  # base 64: all three stages have C <= 128
         "flash_stock": 0, "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
-        "flash_stock_bwd_prep": 0, "int8_quant_rows": 0, "int8_gemm": 0,
+        "flash_stock_bwd_prep": 0, "f32_gemm": 0, "int8_quant_rows": 0, "int8_gemm": 0,
     }
 
 
@@ -431,7 +436,7 @@ def test_small_training_step_launch_counts(cuda):
     assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0,
                                 "flash_stock": per_call, "flash_stock_bwd_dkv": per_call,
                                 "flash_stock_bwd_dq": per_call, "flash_stock_bwd_prep": per_call,
-                                "int8_quant_rows": 0, "int8_gemm": 0}
+                                "f32_gemm": 0, "int8_quant_rows": 0, "int8_gemm": 0}
     assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     for n, p in model.decoder.named_parameters():
         assert torch.equal(p, decoder[n]), n
@@ -1413,11 +1418,13 @@ def test_dit_at_published_widths_runs_its_blocks_on_the_valid_rows(cuda):
     600-1200, one t expanded over the rows as the solve passes it), against
     the plain reference on each row alone at the bar above; padded frames
     exactly 0, and the blocks' GEMMs ran on the N valid rows alone (the M of
-    the first block's out projection and feed-forward inputs)."""
+    the first block's out projection and feed-forward inputs), on the 3xTF32
+    kernel (four launches a block)."""
     import dataclasses
 
     import reference_dit as ref
 
+    from jyutvoice_tpu_torch import kernels
     from jyutvoice_tpu_torch.config import DiTConfig, EstimatorConfig
     from jyutvoice_tpu_torch.models.dit import DiT
     from jyutvoice_tpu_torch.weights import random_init
@@ -1441,8 +1448,12 @@ def test_dit_at_published_widths_runs_its_blocks_on_the_valid_rows(cuda):
     t2 = torch.rand(1, device=cuda, generator=g)[0].expand(2 * b)
     rows = []
     blk = dit.blocks[0]
-    hooks = [m.register_forward_pre_hook(lambda _, a: rows.append(a[0].shape[0]))
-             for m in (blk.attn.o, blk.ff_in)]
+
+    def spy(gemm):
+        return lambda x: rows.append(x.shape[0]) or gemm(x)
+
+    blk.attn.o_gemm, blk.ff_in_gemm = spy(blk.attn.o_gemm), spy(blk.ff_in_gemm)
+    kernels.reset_launch_counts()
     with torch.inference_mode():
         got = dit(x2, mask2, mu2, t2, spks2, cond2)
         worst = 0.0
@@ -1451,7 +1462,152 @@ def test_dit_at_published_widths_runs_its_blocks_on_the_valid_rows(cuda):
             want = ref.estimator(p, dataclasses.asdict(cfg), x2[i:i + 1, :n], mu2[i:i + 1, :n],
                                  t2[i:i + 1], spks2[i:i + 1], cond2[i:i + 1, :n])
             worst = max(worst, float((got[i, :n] - want[0]).abs().max() / want.abs().max()))
-    for h in hooks:
-        h.remove()
     assert rows == [2 * sum(lengths)] * 2
+    assert kernels.LAUNCHES["f32_gemm"] == 4 * cfg.depth  # q/k/v, out, ff_in, ff_out a block
     assert worst <= 1e-4, worst
+
+
+# the DiT block's 3xTF32 GEMM (csrc/f32_gemm.cu): its four (K, N), and the
+# rows of one call in the DiT cell (two 16-request halves of ~890 frames)
+F32_GEMM_KN = [(1024, 3072), (1024, 1024), (1024, 2048), (2048, 1024)]
+F32_GEMM_ROWS = 28500
+
+
+def _f32_gemm_case(cuda, m, k, n, shift=0.0, seed=0):
+    """Seeded x (m, k) ~ N(shift, 1), W (n, k) uniform in (shift +- 1) /
+    sqrt(k) (torch's bound), b (n,) ~ N(0, 0.01); the kernel's output, the
+    plain version's, cuBLAS's f32 GEMM's (F.linear, TF32 off) and the f64
+    product, and the kernel's launches."""
+    import torch.nn.functional as F
+
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import f32_gemm
+
+    g = torch.Generator(device=cuda).manual_seed(seed * 7919 + m + k + n)
+    x = torch.randn(m, k, device=cuda, generator=g) + shift
+    w = (torch.rand(n, k, device=cuda, generator=g) * 2 - 1 + shift) / k ** 0.5
+    b = torch.randn(n, device=cuda, generator=g) * 0.1
+    images = f32_gemm.prepare_weight(w)
+    kernels.reset_launch_counts()
+    got = f32_gemm.linear(x, images, b)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["f32_gemm"]
+    return dict(got=got, plain=f32_gemm.linear_plain(x, images, b), lib=F.linear(x, w, b),
+                want=F.linear(x.double(), w.double(), b.double()), launches=launches,
+                gemm=F.linear(x.double(), w.double()))
+
+
+def _errors(y, want):
+    d = y.double() - want
+    return float(d.abs().max()), float(d.abs().mean()), float(d.mean()), \
+        float(d.pow(2).mean().sqrt())
+
+
+# seeded draws a case: M = 1 takes more, since its largest error is a
+# maximum over N outputs alone
+F32_GEMM_SEEDS = {1: 16, 63: 8, 64: 8, F32_GEMM_ROWS: 3}
+
+
+@pytest.mark.parametrize("m", [1, 63, 64, F32_GEMM_ROWS])
+@pytest.mark.parametrize("k,n", F32_GEMM_KN)
+def test_f32_gemm_kernel_against_f64_and_cublas(cuda, m, k, n):
+    """The kernel at the DiT block's shapes against an f64 product, beside
+    cuBLAS's f32 GEMM on the same inputs, over several seeded draws. On
+    every draw: its mean absolute error at most 2x cuBLAS's; its mean
+    signed error at most 2x cuBLAS's or than three standard errors of
+    cuBLAS's own mean (its rms error over the square root of the outputs),
+    whichever is larger: below that, a mean of m n errors is noise, and the
+    ratio of two such means is as likely to pass 2 as not; its difference
+    from the plain version within the sum of the two's largest errors; one
+    launch. The largest error: at most 2x cuBLAS's on every draw at M >= 63.
+    At M = 1 cuBLAS runs the row as a GEMV, more accurate than its GEMM,
+    and a single draw at K = 2048 can read up to ~2.4x cuBLAS's largest
+    error: there the bar is not met draw by draw (PERF.md §6), and the
+    test holds the largest error over all the case's draws to 2x
+    cuBLAS's over the same draws."""
+    worst, worst_lib = 0.0, 0.0
+    for seed in range(F32_GEMM_SEEDS[m]):
+        c = _f32_gemm_case(cuda, m, k, n, seed=seed)
+        assert c["launches"] == 1 and c["got"].shape == (m, n)
+        mx, mean_abs, signed, _ = _errors(c["got"], c["want"])
+        lib_mx, lib_abs, lib_signed, lib_rms = _errors(c["lib"], c["want"])
+        plain_mx = _errors(c["plain"], c["want"])[0]
+        floor = 3 * lib_rms / (m * n) ** 0.5
+        assert m == 1 or mx <= 2 * lib_mx, (seed, mx, lib_mx)
+        assert mean_abs <= 2 * lib_abs, (seed, mean_abs, lib_abs)
+        assert abs(signed) <= 2 * max(abs(lib_signed), floor), (seed, signed, lib_signed, floor)
+        assert float((c["got"] - c["plain"]).abs().max()) <= mx + plain_mx, seed
+        worst, worst_lib = max(worst, mx), max(worst_lib, lib_mx)
+        del c
+    assert worst <= 2 * worst_lib, (worst, worst_lib)
+
+
+@pytest.mark.parametrize("k,n", F32_GEMM_KN)
+def test_f32_gemm_rounding_toward_zero_is_bounded(cuda, k, n):
+    """Inputs whose products share a sign (x and W shifted by 0.5), at a
+    call's rows: the tensor cores round each sum toward zero, so the
+    product x W^T comes out shrunk by a few of its own f32 ulps. Each
+    k-tile's products start from zero, its eight small ones first, so only
+    its four hi.hi roundings sit at the scale of the k-tile's sum: the
+    shrink reads ~1.5 * 2^-24 of x W^T on an H100, against ~3 * 2^-24 with
+    each k-step's three products in turn (the small terms after the large)
+    and far more with one accumulator over K (3 K / 8 roundings). The
+    mean signed error, as a share of the mean of x W^T, within 2 * 2^-24."""
+    c = _f32_gemm_case(cuda, F32_GEMM_ROWS, k, n, shift=0.5)
+    signed = _errors(c["got"], c["want"])[2]
+    assert abs(signed) / float(c["gemm"].mean()) <= 2 * 2.0 ** -24, signed
+
+
+def test_f32_gemm_kernel_on_views_and_empty_rows(cuda):
+    """(B, T, K) contiguous rows take the kernel as (B T, K); no rows, no
+    launch; a strided view or a (N, K) weight in place of its images
+    raises."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.nn import f32_gemm
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(4, 37, 1024, device=cuda, generator=g)
+    w = torch.randn(1024, 1024, device=cuda, generator=g) / 32
+    images = f32_gemm.prepare_weight(w)
+    kernels.reset_launch_counts()
+    y = f32_gemm.linear(x, images)
+    assert y.shape == (4, 37, 1024) and kernels.LAUNCHES["f32_gemm"] == 1
+    assert torch.equal(y.reshape(-1, 1024), f32_gemm.linear(x.reshape(-1, 1024), images))
+    assert f32_gemm.linear(x[:, :0], images).shape == (4, 0, 1024)
+    assert kernels.LAUNCHES["f32_gemm"] == 2
+    with pytest.raises(ValueError, match="contiguous"):
+        f32_gemm.linear(x.transpose(0, 1), images)
+    with pytest.raises(ValueError, match="images"):
+        f32_gemm.linear(x, w)
+
+
+def test_dit_launches_four_f32_gemms_a_block_per_estimator_call(cuda):
+    """The published-widths DiT (22 blocks) on a small guidance-doubled
+    batch: 88 launches of the 3xTF32 GEMM per estimator call, and a U-Net
+    synthesizer's request none."""
+    from jyutvoice_tpu_torch import kernels
+    from jyutvoice_tpu_torch.config import DiTConfig, EstimatorConfig
+    from jyutvoice_tpu_torch.models.dit import DiT
+    from jyutvoice_tpu_torch.weights import random_init
+    from jyutvoice_tpu_torch.weights.from_jax import load_jax_params
+
+    cfg = DiTConfig()
+    tree = random_init._dit(random_init._Init(0), cfg)
+    dit = load_jax_params(DiT(cfg, EstimatorConfig()), tree).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, t = 4, 256
+    x, mu, cond = (torch.randn(b, t, 80, device=cuda, generator=g) for _ in range(3))
+    mask = (torch.arange(t, device=cuda)[None]
+            < torch.tensor([256, 200, 256, 200], device=cuda)[:, None]).float()[..., None]
+    args = (x, mask, mu, torch.rand(b, device=cuda, generator=g),
+            torch.randn(b, 80, device=cuda, generator=g), cond)
+    with torch.inference_mode():
+        dit(*args)  # the first call builds the images
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            dit(*args)
+    assert kernels.LAUNCHES["f32_gemm"] == 2 * 88 == 2 * 4 * cfg.depth
+    synth = _small_synth(cuda)
+    kernels.reset_launch_counts()
+    synth.synthesize("佢", lang="yue", phone="keoi5", n_timesteps=2)
+    assert kernels.LAUNCHES["f32_gemm"] == 0

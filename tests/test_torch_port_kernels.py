@@ -24,6 +24,7 @@ from jyutvoice_tpu.nn.pallas.resblock import (
     pack_stage_weights as jax_pack,
 )
 from jyutvoice_tpu_torch.models.hift import ResBlock
+from jyutvoice_tpu_torch.nn import f32_gemm
 from jyutvoice_tpu_torch.nn.flash_attention import flash_attention
 from jyutvoice_tpu_torch.nn.flash_stock import flash_stock, flash_stock_bwd_prepare
 from jyutvoice_tpu_torch.nn.quant import QuantLinear
@@ -178,9 +179,10 @@ def test_wrappers_take_plain_path_only_on_cpu():
     q64 = torch.zeros(1, 64, 1, 64)  # the kernels' tile: T a multiple of 64
     flash_stock_bwd_prepare(q64, q64, q64, q64, torch.ones(1, 1, 64), torch.ones(1, 1, 64))
     QuantLinear(16, 8)(torch.ones(3, 16))  # the int8 linear's plain composition
+    f32_gemm.linear(torch.ones(3, 32), torch.ones(2, 128, 32))  # the 3xTF32 linear's plain version
     assert kernels.LAUNCHES == {"flash_attention": 0, "resblock_stage": 0, "flash_stock": 0,
                                 "flash_stock_bwd_dkv": 0, "flash_stock_bwd_dq": 0,
-                                "flash_stock_bwd_prep": 0, "int8_quant_rows": 0,
+                                "flash_stock_bwd_prep": 0, "f32_gemm": 0, "int8_quant_rows": 0,
                                 "int8_gemm": 0}
     assert not kernels._LIBS
 
